@@ -1,0 +1,328 @@
+"""Llama model family in PyTorch, serving path (``paddle_tpu/models/llama.py``
+counterpart).
+
+Ported: the paged ragged serving forward (``LlamaModel.forward`` with
+``caches``, ``block_tables`` and ``span_starts``), which runs the three
+hand-written kernels per decoder layer -- ``fused_rms_rope_qkv``,
+``ragged_paged_attend`` and ``fused_swiglu_mlp`` -- and
+``LlamaForCausalLM.logits``.  The dense/uncached forward, the other paged
+branches, ``generate()``, training and the ``"off"``/``"mega"`` fused-op
+modes raise ``NotImplementedError`` (ROADMAP.md lists them as still to
+port).  ``"auto"`` resolves to ``"on"``: in the port every fused entry
+point serves (the kernel on the card, the plain version on the CPU).
+
+``named_parameters()`` gives the reference's dotted names
+(``model.layers.0.self_attn.q_proj.weight``, ...) with its layouts, so
+``models.convert.params_from_numpy`` loads a JAX model's parameters
+unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from ..nn import functional as F
+from ..nn.layers import Embedding, Linear
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "PRESETS",
+           "llama"]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    initializer_range: float = 0.02
+    use_recompute: bool = False
+    recompute_policy: Optional[str] = None  # full recompute; "dots" saves s×s attn probs = OOM at long seq
+    recompute_num_layers: Optional[int] = None  # Megatron-style partial remat: only the first N layers
+    sequence_parallel: bool = False
+    context_parallel: Optional[str] = None  # None | "ring" | "ulysses" (sep axis)
+    pipeline_stages: int = 1        # >1: stacked pp-sharded decoder body
+    num_microbatches: Optional[int] = None  # default: pipeline_stages
+    virtual_pp_degree: int = 1      # interleaved-schedule chunks per stage
+    loss_seq_chunks: int = 1        # >1: rematerialized seq-chunked vocab CE
+    fuse_qkv_mlp: bool = False      # trace-time concat of qkv / gate+up kernels
+    # fused-kernel library (docs/KERNELS.md): "on" routes norm+rope+qkv
+    # and the swiglu MLP through incubate's fused entry points (Pallas
+    # kernels on TPU, the equivalent XLA composition elsewhere); "mega"
+    # is "on" plus the decode megakernel — the whole decoder-layer
+    # attention block (norm→qkv→rope→ragged attention→o_proj+residual)
+    # as ONE dispatch on the ragged serving step
+    # (ops/pallas/mega_decode.py; XLA composition off-TPU and wherever
+    # its supported() gate declines); "auto" fuses only where a kernel
+    # will actually serve (TPU, no mesh, not vetoed by
+    # tools/tuned_configs.json) so CPU behavior is unchanged; "off"
+    # keeps the unfused projections.  Takes precedence over
+    # fuse_qkv_mlp where both apply.
+    fused_ops: str = "auto"
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def num_params(self) -> int:
+        h, i, v, l = (self.hidden_size, self.intermediate_size,
+                      self.vocab_size, self.num_hidden_layers)
+        kvh = self.num_key_value_heads * self.head_dim
+        per_layer = h * h + 2 * h * kvh + h * h + 3 * h * i + 2 * h
+        embed = v * h * (1 if self.tie_word_embeddings else 2)
+        return l * per_layer + embed + h
+
+
+PRESETS = {
+    "llama2-7b": LlamaConfig(),
+    "llama2-13b": LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                              num_hidden_layers=40, num_attention_heads=40,
+                              num_key_value_heads=40),
+    "llama2-70b": LlamaConfig(hidden_size=8192, intermediate_size=28672,
+                              num_hidden_layers=80, num_attention_heads=64,
+                              num_key_value_heads=8),
+    "llama-1b": LlamaConfig(hidden_size=2048, intermediate_size=5504,
+                            num_hidden_layers=16, num_attention_heads=16,
+                            num_key_value_heads=16, vocab_size=32000),
+    "llama-350m": LlamaConfig(hidden_size=1024, intermediate_size=2816,
+                              num_hidden_layers=24, num_attention_heads=16,
+                              num_key_value_heads=16),
+    # same parameter count as llama-350m but 8 heads of head_dim 128 — the
+    # north-star's (Llama-2-7B) attention geometry, where qk/sv matmuls
+    # fill the 128-wide MXU instead of running K/N=64 at half occupancy
+    "llama-350m-hd128": LlamaConfig(hidden_size=1024, intermediate_size=2816,
+                                    num_hidden_layers=24,
+                                    num_attention_heads=8,
+                                    num_key_value_heads=8),
+    "tiny": LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=2, max_position_embeddings=128),
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_TODO = " is not ported yet (ROADMAP.md, queue 1)"
+
+
+def torch_dtype(name) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}")
+    return _DTYPES[name]
+
+
+class _Init:
+    """Where and how parameters are made: device, dtype, generator."""
+
+    def __init__(self, cfg: LlamaConfig, device, generator):
+        self.device = device
+        self.dtype = torch_dtype(cfg.dtype)
+        self.generator = generator
+        self.std = cfg.initializer_range
+
+    def linear(self, fan_in, fan_out):
+        return Linear(fan_in, fan_out, std=self.std, device=self.device,
+                      dtype=self.dtype, generator=self.generator)
+
+
+class LlamaRMSNorm(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.eps = cfg.rms_norm_eps
+        self.weight = nn.Parameter(
+            torch.ones(cfg.hidden_size, device=init.device, dtype=init.dtype),
+            requires_grad=False)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.eps)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        h, hd = cfg.hidden_size, cfg.head_dim
+        kv = cfg.num_key_value_heads * hd
+        self.q_proj = init.linear(h, cfg.num_attention_heads * hd)
+        self.k_proj = init.linear(h, kv)
+        self.v_proj = init.linear(h, kv)
+        self.o_proj = init.linear(cfg.num_attention_heads * hd, h)
+
+    def forward(self, x, cos, sin, cache, seq_lens, block_tables,
+                span_starts, norm_weight):
+        """The paged ragged branch: ``x`` is the UN-normed residual
+        stream and ``norm_weight`` the input layernorm's weight, folded
+        into the fused norm->qkv->rope kernel; cos/sin are the per-slot
+        (B, C, head_dim) tables.  Returns ``(o_proj(attn), cache)``."""
+        from ..incubate.nn.functional import (fused_rms_rope_qkv,
+                                              ragged_paged_attend)
+        cfg = self.cfg
+        b, s = x.shape[:2]
+        hd = cfg.head_dim
+        q, k, v = fused_rms_rope_qkv(
+            x.reshape(b * s, cfg.hidden_size), norm_weight,
+            self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+            cos.reshape(b * s, hd), sin.reshape(b * s, hd), hd,
+            cfg.rms_norm_eps)
+        q = q.reshape(b, s, cfg.num_attention_heads, hd)
+        k = k.reshape(b, s, cfg.num_key_value_heads, hd)
+        v = v.reshape(b, s, cfg.num_key_value_heads, hd)
+        out, cache = ragged_paged_attend(cache, q, k, v, block_tables,
+                                         span_starts, seq_lens)
+        out = out.reshape(b, s, cfg.num_attention_heads * hd)
+        return self.o_proj(out), cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = init.linear(h, i)
+        self.up_proj = init.linear(h, i)
+        self.down_proj = init.linear(i, h)
+
+    def forward(self, x):
+        from ..incubate.nn.functional import fused_swiglu_mlp
+        h = self.cfg.hidden_size
+        lead = x.shape[:-1]
+        y = fused_swiglu_mlp(x.reshape(-1, h), self.gate_proj.weight,
+                             self.up_proj.weight, self.down_proj.weight)
+        return y.reshape(*lead, h)
+
+
+class LlamaDecoderLayer(nn.Module):
+    supports_paged = True   # paged-pool serving path (serving.Engine)
+
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = LlamaRMSNorm(cfg, init)
+        self.self_attn = LlamaAttention(cfg, init)
+        self.post_attention_layernorm = LlamaRMSNorm(cfg, init)
+        self.mlp = LlamaMLP(cfg, init)
+
+    def forward(self, x, cos, sin, cache, seq_lens, block_tables,
+                span_starts):
+        attn, cache = self.self_attn(x, cos, sin, cache, seq_lens,
+                                     block_tables, span_starts,
+                                     self.input_layernorm.weight)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, cache
+
+
+class LlamaModel(nn.Module):
+    decoder_layer_cls = LlamaDecoderLayer
+
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      std=init.std, device=init.device,
+                                      dtype=init.dtype,
+                                      generator=init.generator)
+        self.layers = nn.ModuleList(
+            [type(self).decoder_layer_cls(cfg, init)
+             for _ in range(cfg.num_hidden_layers)])
+        self.norm = LlamaRMSNorm(cfg, init)
+
+    def forward(self, input_ids, attn_mask=None, position_ids=None,
+                caches=None, seq_lens=None, block_tables=None,
+                span_starts=None):
+        if caches is None:
+            raise NotImplementedError("the uncached Llama forward" + _TODO)
+        if attn_mask is not None or position_ids is not None:
+            raise NotImplementedError(
+                "cached forward supports causal spans only — "
+                "attn_mask/position_ids would be silently ignored")
+        return self._forward_cached(input_ids, caches, seq_lens,
+                                    block_tables, span_starts)
+
+    def _forward_cached(self, input_ids, caches, seq_lens,
+                        block_tables=None, span_starts=None):
+        """The unified RAGGED serving step: per-slot spans (chunked
+        prefill or decode tokens) at positions ``[start, start+len)``
+        over the paged pools, ``seq_lens`` carrying the span lengths.
+        Returns ``(hidden, caches)``."""
+        if block_tables is None or span_starts is None:
+            raise NotImplementedError(
+                "only the paged ragged cached forward (block_tables and "
+                "span_starts) is ported; dense-cache and bucket-prefill "
+                "paths" + _TODO)
+        cfg = self.cfg
+        if len(caches) != len(self.layers):
+            raise ValueError(
+                f"cache list has {len(caches)} entries for "
+                f"{len(self.layers)} decoder layers — was it built by a "
+                "different config?")
+        x = self.embed_tokens(input_ids)
+        s = input_ids.shape[1]
+        pos = span_starts.long()[:, None] + \
+            torch.arange(s, device=input_ids.device)[None, :]
+        cos, sin = F.rope_cos_sin(s, cfg.head_dim, base=cfg.rope_theta,
+                                  dtype=x.dtype, position_ids=pos)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer(x, cos, sin, cache, seq_lens, block_tables,
+                             span_starts)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    model_cls = LlamaModel
+
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mode = getattr(cfg, "fused_ops", "auto")
+        if mode not in ("on", "auto"):
+            raise NotImplementedError(f"fused_ops={mode!r}" + _TODO)
+        if cfg.pipeline_stages != 1 or cfg.sequence_parallel \
+                or cfg.context_parallel:
+            raise NotImplementedError("model parallelism" + _TODO)
+        self.cfg = cfg
+        init = _Init(cfg, resolve_device(device), generator)
+        self.model = type(self).model_cls(cfg, init)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = init.linear(cfg.hidden_size, cfg.vocab_size)
+
+    def logits(self, hidden):
+        if self.cfg.tie_word_embeddings:
+            w = self.model.embed_tokens.weight
+            return hidden @ w.to(hidden.dtype).T
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids, labels=None, attn_mask=None,
+                position_ids=None):
+        raise NotImplementedError(
+            "the dense LlamaForCausalLM forward (training, generate())" +
+            _TODO)
+
+
+def llama(name_or_config="tiny", *, device=None, seed: int = 0,
+          **overrides) -> LlamaForCausalLM:
+    """Build a Llama from a preset name or a config, with random weights
+    drawn from ``torch.Generator(device).manual_seed(seed)`` on
+    ``device`` (default: the CUDA card; raises without one unless
+    ``device="cpu"``)."""
+    cfg = (PRESETS[name_or_config] if isinstance(name_or_config, str)
+           else name_or_config)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return LlamaForCausalLM(cfg, device=dev, generator=gen)
