@@ -11,7 +11,9 @@ the caller passes ``device="cpu"``; on CPU tensors each kernel wrapper
 runs its plain PyTorch version.
 
 Ported so far: Llama serving through the paged ragged ``serving.Engine``
-step (ROADMAP.md lists what is still to port).
+step, and Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
+``nn.ClipGradByGlobalNorm`` and ``amp.decorate`` at O2 (ROADMAP.md lists
+what is still to port).
 """
 
 from .core.device import resolve_device

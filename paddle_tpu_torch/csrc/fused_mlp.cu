@@ -14,19 +14,29 @@
 // partials below add 2 * (I/128) * T * H * 4 bytes of traffic, more than
 // the bf16 weights at 7B width (PERF.md has the measured times).
 //
+// Scratch.  One f32 partial per I-split is (Tpad, H); with one split per
+// 128-wide I chunk that grows with T (5.8 GB at T = 4096, H = 4096,
+// I = 11008).  So the splits are capped at kMaxPartialRows / Tpad, and a
+// block then walks several I chunks in order, adding each chunk's product
+// into its own partial: the scratch stays at most kMaxPartialRows x H x 4
+// bytes (512 MiB at H = 4096).  At serving token counts (Tpad = 128 gives
+// 256 splits) every split is still one chunk.
+//
 // Design.  The TPU kernel carries an f32 (T, H) accumulator across a
 // sequential I axis; on the H100 blocks run in parallel with nothing
 // carried between them.  So the I axis is split across blocks:
-//   pass 1: block (token tile of 64, I chunk of 128) computes its h chunk
-//           into shared memory -- the (T, I) intermediate never goes to
-//           device memory -- and multiplies it by its 128 rows of Wd,
-//           writing an f32 partial (splits, Tpad, H);
+//   pass 1: block (token tile of 64, I split) computes, chunk by chunk
+//           of 128, its h chunk into shared memory -- the (T, I)
+//           intermediate never goes to device memory -- and multiplies it
+//           by that chunk's 128 rows of Wd, adding into its f32 partial
+//           (splits, Tpad, H);
 //   pass 2: a small kernel sums the partials in a fixed split order and
 //           rounds.  No atomics, so the sum order is the same every run.
 #include "common.cuh"
 
 #include <mma.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -35,9 +45,10 @@ using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBT = 64;    // token rows per block
-constexpr int kBI = 128;   // intermediate columns per block (one split)
+constexpr int kBI = 128;   // intermediate columns per chunk
 constexpr int kBN = 128;   // output columns per down-projection tile
 constexpr int kThreads = 256;
+constexpr long long kMaxPartialRows = 32768;   // splits x Tpad, at most
 
 // ---- f32: SIMT units, 16 x 16 threads, each 4 rows x 8 columns --------
 
@@ -56,7 +67,7 @@ swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
                     const float* __restrict__ wu,
                     const float* __restrict__ wd,
                     float* __restrict__ partial, int t, int tpad, int h,
-                    int inter) {
+                    int inter, int cps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);   // [kBKs][kBT]
   float* gs = xs + kBKs * kBT;                  // [kBKs][kBI]
@@ -67,7 +78,10 @@ swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
   const int tx = tid % kTX, ty = tid / kTX;
   const int t0 = blockIdx.x * kBT;
   const int split = blockIdx.y;
-  const int i0 = split * kBI;
+  float* prow = partial + (size_t)split * tpad * h;
+  for (int ch = 0; ch < cps; ++ch) {
+  const int i0 = (split * cps + ch) * kBI;
+  if (i0 >= inter) break;
 
   // 1. gate and up for this token tile and I chunk
   float ag[kRM][8], au[kRM][8];
@@ -123,13 +137,17 @@ swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
   // 3. h chunk times Wd[i0:i0+kBI, :] -> f32 partial, one column tile at a
   //    time
   float* ds = gs;                   // [kBKs][kBN], reuses the gate stage
-  float* prow = partial + (size_t)split * tpad * h;
   for (int n0 = 0; n0 < h; n0 += kBN) {
     float acc[kRM][8];
 #pragma unroll
-    for (int r = 0; r < kRM; ++r)
+    for (int r = 0; r < kRM; ++r) {
+      const int row = t0 + ty * kRM + r;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < 8; ++c)
+        acc[r][c] = (ch == 0 || row >= t)
+                        ? 0.f
+                        : prow[(size_t)row * h + n0 + col_of(tx, c)];
+    }
     for (int k0 = 0; k0 < kBI; k0 += kBKs) {
       for (int e = tid; e < kBKs * kBN; e += kThreads) {
         const int kk = e / kBN, c = e % kBN;
@@ -159,6 +177,7 @@ swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
         prow[(size_t)row * h + n0 + col_of(tx, c)] = acc[r][c];
     }
   }
+  }   // chunks of this split
 }
 
 // ---- bf16: tensor cores, 8 warps as 2 x 4, each a 32 x 32 tile --------
@@ -194,7 +213,7 @@ __global__ void __launch_bounds__(kThreads)
 swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                   const bf16* __restrict__ wu, const bf16* __restrict__ wd,
                   float* __restrict__ partial, int t, int tpad, int h,
-                  int inter) {
+                  int inter, int cps) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* as = reinterpret_cast<bf16*>(smem);   // [kBT][kLdA]
   bf16* bg = as + kBT * kLdA;                 // [kBK][kLdB]
@@ -206,7 +225,10 @@ swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int wm = warp / 4, wn = warp % 4;     // 32-row x 32-column tile
   const int t0 = blockIdx.x * kBT;
   const int split = blockIdx.y;
-  const int i0 = split * kBI;
+  float* prow = partial + (size_t)split * tpad * h;
+  for (int ch = 0; ch < cps; ++ch) {
+  const int i0 = (split * cps + ch) * kBI;
+  if (i0 >= inter) break;
 
   // 1. gate and up for this token tile and I chunk
   FragC ag[2][2], au[2][2];
@@ -279,15 +301,24 @@ swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   }
   __syncthreads();
 
-  // 3. h chunk times Wd[i0:i0+kBI, :] -> f32 partial, straight from the
-  //    fragments (the partial has tpad rows, so every tile row exists)
-  float* prow = partial + (size_t)split * tpad * h;
+  // 3. h chunk times Wd[i0:i0+kBI, :] added into the f32 partial,
+  //    straight from the fragments (the partial has tpad rows, so every
+  //    tile row exists; the first chunk of a split starts from zero)
   for (int n0 = 0; n0 < h; n0 += kBN) {
     FragC acc[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      for (int j = 0; j < 2; ++j) {
+        if (ch == 0)
+          wmma::fill_fragment(acc[i][j], 0.f);
+        else
+          wmma::load_matrix_sync(
+              acc[i][j],
+              prow + (size_t)(t0 + wm * 32 + i * 16) * h + n0 + wn * 32 +
+                  j * 16,
+              h, wmma::mem_row_major);
+      }
     for (int k0 = 0; k0 < kBI; k0 += kBK) {
       load_w_tile(bg, wd, h, i0 + k0, n0);
       __syncthreads();
@@ -320,6 +351,8 @@ swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                 j * 16,
             acc[i][j], h, wmma::mem_row_major);
   }
+  __syncthreads();
+  }   // chunks of this split
 }
 
 // ---- pass 2 --------------------------------------------------------------
@@ -337,11 +370,26 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 int tpad_of(int t) { return (t + kBT - 1) / kBT * kBT; }
 
+// I chunks per split: one while splits x Tpad <= kMaxPartialRows, more
+// once T is large.
+int chunks_per_split(int t, int inter) {
+  const long long chunks = inter / kBI;
+  const long long max_splits =
+      std::max(1LL, kMaxPartialRows / (long long)tpad_of(t));
+  return (int)((chunks + max_splits - 1) / max_splits);
+}
+
+int splits_of(int t, int inter) {
+  const int cps = chunks_per_split(t, inter);
+  return (inter / kBI + cps - 1) / cps;
+}
+
 template <typename T>
 int launch(const void* x, const void* wg, const void* wu, const void* wd,
            void* partial, void* out, int t, int h, int inter,
            cudaStream_t stream) {
-  const int splits = inter / kBI, tpad = tpad_of(t);
+  const int cps = chunks_per_split(t, inter);
+  const int splits = splits_of(t, inter), tpad = tpad_of(t);
   dim3 grid(tpad / kBT, splits);
   float* part = static_cast<float*>(partial);
   cudaError_t e;
@@ -353,7 +401,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
     swiglu_partial_tc<<<grid, kThreads, kTcSmem, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
         static_cast<const bf16*>(wu), static_cast<const bf16*>(wd), part, t,
-        tpad, h, inter);
+        tpad, h, inter, cps);
   } else {
     e = cudaFuncSetAttribute(swiglu_partial_simt,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -362,7 +410,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
     swiglu_partial_simt<<<grid, kThreads, kSimtSmem, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(wg),
         static_cast<const float*>(wu), static_cast<const float*>(wd), part, t,
-        tpad, h, inter);
+        tpad, h, inter, cps);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -396,5 +444,5 @@ extern "C" int pt_fused_swiglu_mlp(const void* x, const void* wg,
 
 // f32 scratch elements `pt_fused_swiglu_mlp` needs for these sizes.
 extern "C" long long pt_fused_swiglu_mlp_scratch(int t, int h, int inter) {
-  return (long long)(inter / kBI) * tpad_of(t) * h;
+  return (long long)splits_of(t, inter) * tpad_of(t) * h;
 }

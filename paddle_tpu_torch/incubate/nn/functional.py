@@ -8,7 +8,19 @@ are the plain versions under the reference's names.  ``_paged_span_write``
 and ``paged_copy_blocks`` are plain indexed tensor code here as in the
 reference, where they are not Pallas kernels either.
 
-Forward only: gradients belong to the training slice.
+``fused_swiglu_mlp`` and ``fused_rms_rope_qkv`` are differentiable: each
+is a ``torch.autograd.Function`` whose forward is the kernel (the plain
+version on the CPU) and whose backward recomputes through the plain
+composition under autograd, exactly as the reference's ``custom_vjp``
+takes ``jax.vjp`` of its ``_ref``.  The reference has no backward kernel
+for either op, so gradients come from the plain arithmetic.  Its products
+are f32 (``a.float() @ b.float()``).  For bf16 inputs (amp O2) the
+backward runs them at TF32 on the card: bf16 operands are exact in TF32,
+and f32 intermediate gradients (the cotangents, ``silu(x Wg)`` and the
+like) are rounded to TF32's 10-bit mantissa.  That is finer than the
+reference's own arithmetic on its home chip, whose default-precision f32
+products take single bf16 passes (8 bits).  With f32 inputs the backward
+keeps PyTorch's global setting (full f32 by default).
 
 Out-of-range block ids.  The serving scheduler makes dead slots and
 warmup inert by pointing block tables at the sentinel id ``num_blocks``.
@@ -21,6 +33,7 @@ owns exactly one copy of its pools) and return the same tensors.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -39,12 +52,73 @@ _paged_gather_dense = _ra.paged_gather_dense
 _ragged_attend_dense = _ra.ragged_attend_dense
 
 
+@contextlib.contextmanager
+def _backward_precision(dtype: torch.dtype):
+    """TF32 products on the card for 16-bit ``dtype``, restored after;
+    no change for f32 (see the module note)."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _vjp_of_plain(ctx, plain_fn, cts):
+    """Gradients of ``plain_fn(*saved)`` for the inputs that need them,
+    recomputed under autograd (the reference's ``jax.vjp(_ref, ...)``)."""
+    saved = ctx.saved_tensors
+    ins = [t.detach().requires_grad_(need)
+           for t, need in zip(saved, ctx.needs_input_grad)]
+    wanted = [t for t in ins if t.requires_grad]
+    with torch.enable_grad(), _backward_precision(saved[0].dtype):
+        outs = plain_fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = iter(torch.autograd.grad(outs, wanted, cts,
+                                         allow_unused=True)
+                     if wanted else ())
+    return [next(grads) if t.requires_grad else None for t in ins]
+
+
+class _FusedSwigluMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        dt = x.dtype
+        return _fm.fused_swiglu_mlp(x, w_gate.to(dt), w_up.to(dt),
+                                    w_down.to(dt))
+
+    @staticmethod
+    def backward(ctx, ct):
+        return tuple(_vjp_of_plain(ctx, _fm.plain, (ct,)))
+
+
+class _FusedRmsRopeQkv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, norm_weight, w_q, w_k, w_v, cos, sin, head_dim,
+                eps):
+        ctx.save_for_backward(x, norm_weight, w_q, w_k, w_v, cos, sin)
+        ctx.head_dim, ctx.eps = head_dim, eps
+        dt = x.dtype
+        return _fq.fused_rms_rope_qkv(x, norm_weight.to(dt), w_q.to(dt),
+                                      w_k.to(dt), w_v.to(dt), cos.to(dt),
+                                      sin.to(dt), head_dim, eps)
+
+    @staticmethod
+    def backward(ctx, cq, ck, cv):
+        grads = _vjp_of_plain(
+            ctx, lambda *a: _fq.plain(*a, ctx.head_dim, ctx.eps),
+            (cq, ck, cv))
+        return (*grads, None, None)
+
+
 def fused_swiglu_mlp(x, w_gate, w_up, w_down):
     """``silu(x @ Wg) * (x @ Wu) @ Wd`` in one kernel.  x: (T, H);
     returns (T, H) in x.dtype."""
-    dt = x.dtype
-    return _fm.fused_swiglu_mlp(x, w_gate.to(dt), w_up.to(dt),
-                                w_down.to(dt))
+    return _FusedSwigluMLP.apply(x, w_gate, w_up, w_down)
 
 
 def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
@@ -52,10 +126,8 @@ def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
     """rms_norm -> q/k/v projections -> rotate-half rope on q/k in one
     kernel.  x: (T, H); norm_weight: (H,); w_q: (H, Nq); w_k/w_v:
     (H, Nk); cos/sin: (T, head_dim).  Returns ``(q, k, v)`` in x.dtype."""
-    dt = x.dtype
-    return _fq.fused_rms_rope_qkv(x, norm_weight.to(dt), w_q.to(dt),
-                                  w_k.to(dt), w_v.to(dt), cos.to(dt),
-                                  sin.to(dt), head_dim, eps)
+    return _FusedRmsRopeQkv.apply(x, norm_weight, w_q, w_k, w_v, cos, sin,
+                                  head_dim, eps)
 
 
 def _paged_span_write(cache, k, v, block_tables, span_starts, span_lens):

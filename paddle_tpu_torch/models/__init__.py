@@ -1,5 +1,6 @@
-from .convert import params_from_numpy
-from .llama import LlamaConfig, LlamaForCausalLM, PRESETS, llama
+from .convert import params_from_numpy, train_state_from_numpy
+from .llama import (LlamaConfig, LlamaForCausalLM, PRESETS, causal_lm_loss,
+                    llama)
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "PRESETS", "llama",
-           "params_from_numpy"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "PRESETS", "causal_lm_loss",
+           "llama", "params_from_numpy", "train_state_from_numpy"]

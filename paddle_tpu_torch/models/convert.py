@@ -7,6 +7,11 @@ config, name for name, layout for layout.  A JAX bf16 array exports as an
 ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` refuses, so
 such arrays go through float32 first -- exact, since every bf16 value is
 an f32 value -- and are then cast to the parameter's dtype.
+
+:func:`train_state_from_numpy` carries a JAX ``TrainStep`` state across
+the same way: the parameters, and the optimizer's ``step``, ``master``,
+``moment1`` and ``moment2``, copied in place into a port state made by
+``TrainStep.init_state``, so both sides start a step from the same state.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -46,3 +51,38 @@ def params_from_numpy(model: nn.Module, arrays: Dict[str, np.ndarray]
                                  f"{tuple(p.shape)}")
             p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def _copy_dict(dst: Dict[str, torch.Tensor], src: Dict, what: str) -> None:
+    if set(dst) != set(src):
+        raise KeyError(f"{what}: names differ: missing "
+                       f"{sorted(set(dst) - set(src))}, unexpected "
+                       f"{sorted(set(src) - set(dst))}")
+    for name, t in dst.items():
+        a = src[name]
+        if t is None or a is None:
+            if (t is None) != (a is None):
+                raise ValueError(f"{what}.{name}: present on one side only")
+            continue
+        v = _to_tensor(a)
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{what}.{name}: shape {tuple(v.shape)} != "
+                             f"{tuple(t.shape)}")
+        t.copy_(v.to(device=t.device, dtype=t.dtype))
+
+
+def train_state_from_numpy(state: Dict, arrays: Dict) -> Dict:
+    """Copy a JAX ``TrainStep`` state, exported as numpy (``{"params":
+    {...}, "opt": {"step", "master", "moment1", "moment2"}, "step"}``),
+    into the port ``state`` in place.  Every slot of the port's optimizer
+    state must be given.  Returns ``state``."""
+    with torch.no_grad():
+        _copy_dict(state["params"], arrays["params"], "params")
+        opt = state["opt"]
+        for slot, val in opt.items():
+            if isinstance(val, dict):
+                _copy_dict(val, arrays["opt"][slot], slot)
+        opt["step"] = int(np.asarray(arrays["opt"]["step"]))
+        if "step" in arrays:
+            state["step"] = int(np.asarray(arrays["step"]))
+    return state

@@ -1,15 +1,23 @@
-"""Llama model family in PyTorch, serving path (``paddle_tpu/models/llama.py``
+"""Llama model family in PyTorch (``paddle_tpu/models/llama.py``
 counterpart).
 
-Ported: the paged ragged serving forward (``LlamaModel.forward`` with
-``caches``, ``block_tables`` and ``span_starts``), which runs the three
-hand-written kernels per decoder layer -- ``fused_rms_rope_qkv``,
-``ragged_paged_attend`` and ``fused_swiglu_mlp`` -- and
-``LlamaForCausalLM.logits``.  The dense/uncached forward, the other paged
-branches, ``generate()``, training and the ``"off"``/``"mega"`` fused-op
-modes raise ``NotImplementedError`` (ROADMAP.md lists them as still to
-port).  ``"auto"`` resolves to ``"on"``: in the port every fused entry
-point serves (the kernel on the card, the plain version on the CPU).
+Ported:
+- the uncached forward (``LlamaModel.forward`` without caches) and
+  ``LlamaForCausalLM.forward`` with ``labels`` (the ``valid``-masked mean
+  cross entropy), with ``causal_lm_loss`` for ``jit.TrainStep``: per
+  decoder layer ``fused_rms_rope_qkv`` (the input norm folded in),
+  ``scaled_dot_product_attention`` (the flash-attention kernels) and
+  ``fused_swiglu_mlp``, all differentiable;
+- the paged ragged serving forward (``LlamaModel.forward`` with
+  ``caches``, ``block_tables`` and ``span_starts``): ``fused_rms_rope_qkv``,
+  ``ragged_paged_attend`` and ``fused_swiglu_mlp``, and
+  ``LlamaForCausalLM.logits``.
+The other paged branches, ``generate()``, context/model parallelism, the
+chunked loss and the ``"off"``/``"mega"`` fused-op modes raise
+``NotImplementedError`` (ROADMAP.md lists them as still to port).
+``"auto"`` resolves to ``"on"``: in the port every fused entry point
+serves (the kernel on the card, the plain version on the CPU).
+Parameters are trainable; serving runs under ``torch.no_grad()``.
 
 ``named_parameters()`` gives the reference's dotted names
 (``model.layers.0.self_attn.q_proj.weight``, ...) with its layouts, so
@@ -30,7 +38,7 @@ from ..nn import functional as F
 from ..nn.layers import Embedding, Linear
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "PRESETS",
-           "llama"]
+           "causal_lm_loss", "llama"]
 
 
 @dataclasses.dataclass
@@ -142,8 +150,7 @@ class LlamaRMSNorm(nn.Module):
         super().__init__()
         self.eps = cfg.rms_norm_eps
         self.weight = nn.Parameter(
-            torch.ones(cfg.hidden_size, device=init.device, dtype=init.dtype),
-            requires_grad=False)
+            torch.ones(cfg.hidden_size, device=init.device, dtype=init.dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.eps)
@@ -160,17 +167,22 @@ class LlamaAttention(nn.Module):
         self.v_proj = init.linear(h, kv)
         self.o_proj = init.linear(cfg.num_attention_heads * hd, h)
 
-    def forward(self, x, cos, sin, cache, seq_lens, block_tables,
-                span_starts, norm_weight):
-        """The paged ragged branch: ``x`` is the UN-normed residual
-        stream and ``norm_weight`` the input layernorm's weight, folded
-        into the fused norm->qkv->rope kernel; cos/sin are the per-slot
-        (B, C, head_dim) tables.  Returns ``(o_proj(attn), cache)``."""
+    def forward(self, x, cos, sin, norm_weight, attn_mask=None, cache=None,
+                seq_lens=None, block_tables=None, span_starts=None):
+        """``x`` is the UN-normed residual stream and ``norm_weight`` the
+        input layernorm's weight, folded into the fused norm->qkv->rope
+        kernel; cos/sin are (S, head_dim) or per-slot (B, S, head_dim).
+        Without a cache: causal attention over the sequence, returns
+        ``o_proj(attn)``.  With the paged pools (``cache``,
+        ``block_tables``, ``span_starts``): the ragged serving branch,
+        returns ``(o_proj(attn), cache)``."""
         from ..incubate.nn.functional import (fused_rms_rope_qkv,
                                               ragged_paged_attend)
         cfg = self.cfg
         b, s = x.shape[:2]
         hd = cfg.head_dim
+        if cos.ndim == 2:
+            cos, sin = (t[None].expand(b, s, hd) for t in (cos, sin))
         q, k, v = fused_rms_rope_qkv(
             x.reshape(b * s, cfg.hidden_size), norm_weight,
             self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
@@ -179,6 +191,11 @@ class LlamaAttention(nn.Module):
         q = q.reshape(b, s, cfg.num_attention_heads, hd)
         k = k.reshape(b, s, cfg.num_key_value_heads, hd)
         v = v.reshape(b, s, cfg.num_key_value_heads, hd)
+        if cache is None:
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
+            return self.o_proj(out.reshape(b, s, cfg.num_attention_heads
+                                           * hd))
         out, cache = ragged_paged_attend(cache, q, k, v, block_tables,
                                          span_starts, seq_lens)
         out = out.reshape(b, s, cfg.num_attention_heads * hd)
@@ -214,14 +231,21 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(cfg, init)
         self.mlp = LlamaMLP(cfg, init)
 
-    def forward(self, x, cos, sin, cache, seq_lens, block_tables,
-                span_starts):
-        attn, cache = self.self_attn(x, cos, sin, cache, seq_lens,
-                                     block_tables, span_starts,
-                                     self.input_layernorm.weight)
+    def forward(self, x, cos, sin, attn_mask=None, cache=None,
+                seq_lens=None, block_tables=None, span_starts=None):
+        """Without a cache returns ``x``; with the paged pools returns
+        ``(x, cache)``."""
+        nw = self.input_layernorm.weight
+        if cache is None:
+            attn = self.self_attn(x, cos, sin, nw, attn_mask)
+        else:
+            attn, cache = self.self_attn(x, cos, sin, nw, cache=cache,
+                                         seq_lens=seq_lens,
+                                         block_tables=block_tables,
+                                         span_starts=span_starts)
         x = x + attn
         x = x + self.mlp(self.post_attention_layernorm(x))
-        return x, cache
+        return x if cache is None else (x, cache)
 
 
 class LlamaModel(nn.Module):
@@ -243,7 +267,15 @@ class LlamaModel(nn.Module):
                 caches=None, seq_lens=None, block_tables=None,
                 span_starts=None):
         if caches is None:
-            raise NotImplementedError("the uncached Llama forward" + _TODO)
+            cfg = self.cfg
+            x = self.embed_tokens(input_ids)
+            cos, sin = F.rope_cos_sin(input_ids.shape[1], cfg.head_dim,
+                                      base=cfg.rope_theta, dtype=x.dtype,
+                                      position_ids=position_ids,
+                                      device=x.device)
+            for layer in self.layers:
+                x = layer(x, cos, sin, attn_mask)
+            return self.norm(x)
         if attn_mask is not None or position_ids is not None:
             raise NotImplementedError(
                 "cached forward supports causal spans only — "
@@ -276,8 +308,9 @@ class LlamaModel(nn.Module):
                                   dtype=x.dtype, position_ids=pos)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
-            x, cache = layer(x, cos, sin, cache, seq_lens, block_tables,
-                             span_starts)
+            x, cache = layer(x, cos, sin, cache=cache, seq_lens=seq_lens,
+                             block_tables=block_tables,
+                             span_starts=span_starts)
             new_caches.append(cache)
         return self.norm(x), new_caches
 
@@ -294,6 +327,8 @@ class LlamaForCausalLM(nn.Module):
         if cfg.pipeline_stages != 1 or cfg.sequence_parallel \
                 or cfg.context_parallel:
             raise NotImplementedError("model parallelism" + _TODO)
+        if cfg.use_recompute:
+            raise NotImplementedError("use_recompute" + _TODO)
         self.cfg = cfg
         init = _Init(cfg, resolve_device(device), generator)
         self.model = type(self).model_cls(cfg, init)
@@ -308,9 +343,18 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None, attn_mask=None,
                 position_ids=None):
-        raise NotImplementedError(
-            "the dense LlamaForCausalLM forward (training, generate())" +
-            _TODO)
+        """Logits, or with ``labels`` the mean cross entropy over the
+        labels that are not -100 (f32)."""
+        hidden = self.model(input_ids, attn_mask, position_ids)
+        if labels is None:
+            return self.logits(hidden)
+        if self.cfg.loss_seq_chunks > 1:
+            raise NotImplementedError("loss_seq_chunks > 1" + _TODO)
+        logits = self.logits(hidden)
+        loss = F.cross_entropy(logits.float(), labels, reduction="none",
+                               ignore_index=-100)
+        valid = labels != -100
+        return (loss * valid).sum() / torch.clamp(valid.sum(), min=1)
 
 
 def llama(name_or_config="tiny", *, device=None, seed: int = 0,
@@ -326,3 +370,8 @@ def llama(name_or_config="tiny", *, device=None, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return LlamaForCausalLM(cfg, device=dev, generator=gen)
+
+
+def causal_lm_loss(model, batch):
+    """Standard loss_fn for TrainStep."""
+    return model(batch["input_ids"], labels=batch["labels"])

@@ -1,4 +1,6 @@
 from . import functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layers import Embedding, Linear
 
-__all__ = ["Embedding", "Linear", "functional"]
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Embedding", "Linear", "functional"]

@@ -2,7 +2,8 @@
 Linear weight is (in_features, out_features), as in
 ``paddle_tpu/distributed/mp_layers.py``; an Embedding weight is
 (vocab, hidden).  Parameters are made on an explicit device and dtype and
-drawn from an explicit ``torch.Generator``."""
+drawn from an explicit ``torch.Generator``; they are trainable (serving
+runs under ``torch.no_grad()``)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def _normal(shape, std, device, dtype, generator):
     w = torch.empty(shape, device=device, dtype=dtype)
     with torch.no_grad():
         w.normal_(0.0, std, generator=generator)
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 class Linear(nn.Module):

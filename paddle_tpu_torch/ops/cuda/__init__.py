@@ -4,6 +4,8 @@ version (run on CPU tensors) and its launch counter (``KERNEL.launches``).
 The sources are ``paddle_tpu_torch/csrc/*.cu``; ``_build`` compiles them
 at first use."""
 
-from . import fused_mlp, fused_norm_qkv, ragged_attention
+from . import (flash_attention, fused_adamw, fused_mlp, fused_norm_qkv,
+               ragged_attention)
 
-__all__ = ["fused_mlp", "fused_norm_qkv", "ragged_attention"]
+__all__ = ["flash_attention", "fused_adamw", "fused_mlp", "fused_norm_qkv",
+           "ragged_attention"]

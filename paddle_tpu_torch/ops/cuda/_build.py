@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_norm_qkv", "fused_mlp", "ragged_attention")
+SOURCES = ("fused_norm_qkv", "fused_mlp", "ragged_attention",
+           "flash_attention", "fused_adamw")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

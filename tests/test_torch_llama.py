@@ -102,18 +102,38 @@ def test_bf16_parameters_load_exactly():
                                        dtype="bfloat16"), arrays)
     for name, p in tm.named_parameters():
         assert p.dtype == torch.bfloat16
-        np.testing.assert_array_equal(p.float().numpy(),
+        np.testing.assert_array_equal(p.detach().float().numpy(),
                                       arrays[name].astype(np.float32))
 
 
 def test_paths_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_llama("tiny", device="cpu", fused_ops="mega")
-    tm = torch_llama("tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros((1, 4), dtype=torch.int64))
+        torch_llama("tiny", device="cpu", use_recompute=True)
+    tm = torch_llama("tiny", device="cpu", loss_seq_chunks=2)
+    ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.model(torch.zeros((1, 4), dtype=torch.int64))
+        tm(ids, labels=ids)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.model(ids, caches=[None] * tm.cfg.num_hidden_layers)
+
+
+def test_dense_forward_matches_jax(models):
+    """The uncached forward: logits, and the masked-mean loss with -100
+    labels, f32."""
+    jm, tm = models
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, jm.cfg.vocab_size, size=(2, 12)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    labels[0, -3:] = -100
+    with torch.no_grad():
+        tl = tm(torch.from_numpy(ids))
+        tloss = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jm(jnp.asarray(ids))),
+                               **TOL)
+    jloss = jm(jnp.asarray(ids), labels=jnp.asarray(labels))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("op", ["rms_norm", "rope_cos_sin", "rope_apply",
