@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run on its own (nothing is caught):
 
-1. build: compiles the five CUDA kernel sources from paddle_tpu_torch/csrc
+1. build: compiles the seven CUDA kernel sources from paddle_tpu_torch/csrc
    for sm_90a, one nvcc per source, all at once (timed as set-up);
 2. kernels: holds each kernel against its plain PyTorch version on the
    card, in bf16 and f32, at the serving path's llama2-7b shapes (T = B*C
@@ -23,16 +23,28 @@ Phases, each of which fails the run on its own (nothing is caught):
    moments and update held per element (the decay to 1/30 of itself); the
    MLP kernel's scratch bytes, error and time at T = 128 and T = 4096; and
    the flash kernels off those shapes (causal Sq < Sk, ragged lengths,
-   head dims 18, 64, 80, 256);
+   head dims 18, 64, 80, 256); the int8 and int4 weight-only matmul
+   kernels at the four shapes of the quantized llama2-7b engine step (128
+   rows through 4096x4096, 4096x11008 and 11008x4096 weights, 8 rows
+   through the 4096x32000 LM head) with a cuBLAS yardstick over the
+   widened weight, each kind's sum over one step's 225 calls, and their
+   edge cases (M 1/8/257, K 100/102, N 200, f16, an unaligned x, every
+   int8 code and every packed int4 byte);
 3. engine: llama2-7b in bf16, all 32 layers, random weights drawn on the
    card from a seeded generator, behind Engine(max_batch=8,
    max_seq_len=512, page_size=16): 8 staggered greedy requests, two of
    them sharing a 64-token prefix after a first one finished (prefix
    hits and copy-on-write); checks that all finished, the pool drained
    and each kernel's launch count equals layers x non-empty steps;
+   then the same model, engine and traffic with Engine(weight_quant=
+   "int8") and again "int4": the quantized kernel launched 225 times per
+   step (7 projections x 32 layers + the LM head), ragged attention 32,
+   the fused QKV/MLP kernels 0; weight bytes on the card against bf16;
 4. cross-check: a 2-layer model at full llama2-7b width in f32, the same
    weights on both sides, kernels on the card against the plain versions
-   on the CPU: greedy streams must be equal under the near-tie rule;
+   on the CPU: greedy streams must be equal under the near-tie rule; the
+   same for int8 and int4, whose codes and scales quantized on the card
+   must equal the CPU's bit for bit;
 5. train: llama2-7b width cut to 4 layers, amp O2 (bf16 parameters, f32
    master weights), AdamW + ClipGradByGlobalNorm through TrainStep, batch
    2 x 2048, 5 steps on one fixed batch, PyTorch's default precision:
@@ -46,7 +58,9 @@ Phases, each of which fails the run on its own (nothing is caught):
    the CPU from the same weights and batch: losses, moments and each
    parameter's update must agree (decay-only elements to 4 f32 units).
 
-Prints each measurement as a JSON line, the card's name and power limit,
+Prints each measurement as a JSON line (kernel, mlp_scratch, flash_edges,
+quant_edges, engine, quant_engine, cross_check, quant_cross_check, train,
+train_cross_check), the card's name and power limit,
 a {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  Exits non-zero without a CUDA device.
 """
@@ -70,22 +84,27 @@ from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import PRESETS, causal_lm_loss, llama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import quant as Q
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_adamw as AD
 from paddle_tpu_torch.ops.cuda import fused_mlp as FM
 from paddle_tpu_torch.ops.cuda import fused_norm_qkv as FQ
+from paddle_tpu_torch.ops.cuda import int4_matmul as I4
+from paddle_tpu_torch.ops.cuda import int8_matmul as I8
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.serving import Engine
 
 # H100 SXM, NVIDIA's data sheet (dense): memory rate and peak by type
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 # kernel vs plain on the card: |kernel - plain| <= atol + rtol * |plain|.
 # f32: the same arithmetic in another summation order.  bf16: the same
 # rounding points, where an f32 sum on a rounding boundary can move an
 # intermediate or the output by one bf16 unit (2**-8 relative).
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+       torch.float16: (1e-2, 1e-2)}
 # near-tie rule: a greedy token may differ only where the reference's
 # top-2 logit margin is below this (f32 logits here differ by ~1e-5)
 TIE = 1e-3
@@ -107,8 +126,19 @@ KERNELS = [
      "paddle_tpu/ops/pallas/flash_attention.py:412"),
     ("fused_adamw", AD.KERNEL, "paddle_tpu_torch/csrc/fused_adamw.cu",
      "paddle_tpu/ops/pallas/fused_adamw.py:89"),
+    ("int8_matmul", I8.KERNEL, "paddle_tpu_torch/csrc/int8_matmul.cu",
+     "paddle_tpu/ops/pallas/int8_matmul.py:92"),
+    ("int4_matmul", I4.KERNEL, "paddle_tpu_torch/csrc/int4_matmul.cu",
+     "paddle_tpu/ops/pallas/int4_matmul.py:143"),
 ]
 SERVING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "ragged_paged_attention")
+QUANT = {"int8": ("int8_matmul", I8.int8_matmul, I8.plain),
+         "int4": ("int4_matmul", I4.int4_matmul, I4.plain)}
+# the weight-only llama2-7b engine step: (rows, K, N, calls per step) of
+# every quantized projection -- q, k, v, o; gate, up; down (T = B*C = 128
+# rows, 32 layers) -- and the LM head (one row per slot)
+QUANT_STEP = [(128, 4096, 4096, 4 * 32), (128, 4096, 11008, 2 * 32),
+              (128, 11008, 4096, 32), (8, 4096, 32000, 1)]
 TRAINING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "flash_attention_fwd",
             "flash_attention_bwd", "fused_adamw")
 
@@ -121,8 +151,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of ``iters`` CUDA-event timings of ``fn()``, in ms."""
+def cuda_ms(fn, iters: int = 5, reps: int = 5, warmup: int = 2) -> float:
+    """Time of one ``fn()`` in ms: the median over ``iters`` CUDA-event
+    windows, each around ``reps`` back-to-back calls, divided by
+    ``reps`` -- the card's time per call, not the host's time to launch
+    one call into an idle card."""
     for _ in range(warmup):
         fn()
     times = []
@@ -130,10 +163,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -468,6 +502,130 @@ def mlp_scratch_rows(gen):
     return rows
 
 
+def quant_case(kind, m, k, n, dtype, gen):
+    """A weight-only matmul of a random (K, N) weight quantized on the
+    card, x (M, K) in ``dtype``.  Library: torch.matmul over the weight
+    already widened to x's dtype, times the scale -- what an unquantized
+    cuBLAS layer costs; it reads 2 (int8) or 4 (int4) times the kernel's
+    weight bytes."""
+    _, fn, plain_fn = QUANT[kind]
+    x = rand((m, k), dtype, gen)
+    w = rand((k, n), torch.float32, gen, 0.02)
+    q, s = Q.weight_quantize(w, "weight_only_" + kind)
+    del w
+    wide = (q if kind == "int8" else I4.unpack_int4(q)).to(dtype)
+    kern = lambda: fn(x, q, s)
+    plain = lambda: plain_fn(x, q, s)
+    library = lambda: torch.matmul(x, wide) * s
+    err = compare(f"{kind} {m}x{k}x{n}", kern(), plain(), dtype)
+    nbytes = q.numel() + x.element_size() * (m * k + m * n) + 4 * n
+    return err, kern, plain, library, nbytes, 2.0 * m * k * n, (x, q, s)
+
+
+def int8pack_ms(x, q, s):
+    """Time of torch._weight_int8pack_mm (x @ W.T * s, W (N, K) int8, the
+    scales in x's dtype) on the same inputs where this PyTorch has it for
+    CUDA tensors, else None.  A yardstick only: the port never calls
+    it."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    wt, s = q.t().contiguous(), s.to(x.dtype)
+    try:
+        fn(x, wt, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"_weight_int8pack_mm unavailable for {x.dtype}: "
+            f"{str(e).splitlines()[0][:120]}")
+        return None
+    return cuda_ms(lambda: fn(x, wt, s))
+
+
+def quant_kernel_rows(gen):
+    """int8 and int4, bf16 and f32, at the weight-only engine step's four
+    shapes; then each kind's sum over one step's 225 calls."""
+    rows = []
+    for kind in QUANT:
+        for m, k, n, calls in QUANT_STEP:
+            for dt in (torch.bfloat16, torch.float32):
+                err, kern, plain, library, nbytes, ops, ins = quant_case(
+                    kind, m, k, n, dt, gen)
+                torch.cuda.synchronize()
+                bms, by = bound_ms(nbytes, ops, dt)
+                row = {"name": QUANT[kind][0], "geometry": "llama2-7b",
+                       "shape": [m, k, n], "calls_per_step": calls,
+                       "dtype": str(dt).replace("torch.", ""),
+                       "max_abs_err": err, "tol": TOL[dt],
+                       "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                       "library_ms": cuda_ms(library), "bound_ms": bms,
+                       "bound_by": by,
+                       "int8pack_ms": int8pack_ms(*ins)
+                       if kind == "int8" else None}
+                rows.append(row)
+                log("kernel " + json.dumps(row))
+                del kern, plain, library, ins
+                torch.cuda.empty_cache()
+    for kind in QUANT:
+        part = [r for r in rows if r["name"] == QUANT[kind][0]
+                and r["dtype"] == "bfloat16"]
+        step = {"name": QUANT[kind][0], "geometry": "llama2-7b-step",
+                "dtype": "bfloat16",
+                "calls_per_step": sum(r["calls_per_step"] for r in part),
+                "max_abs_err": max(r["max_abs_err"] for r in part)}
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            step[key] = sum(r[key] * r["calls_per_step"] for r in part)
+        by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
+                       if r["bound_by"] == "bytes")
+        step["bound_by"] = "bytes" if by_bytes >= step["bound_ms"] / 2 \
+            else "operations"
+        rows.append(step)
+        log("kernel " + json.dumps(step))
+    return rows
+
+
+def quant_edge_checks(gen):
+    """The int8/int4 kernels against their plain versions off the main
+    path's shapes: M in {1, 8, 257} with K = 100 (int8) / 102 (int4) and
+    N = 200 (element loads, partial tiles), in bf16, f16 and f32; aligned
+    shapes with K and N tails inside a tile (K = 4160, N = 272); an x
+    that starts 2 bytes past a 16-byte boundary; and every byte value:
+    an identity x through all 256 int8 codes, and through all 256 packed
+    bytes, must give the codes and the sign-extended nibbles exactly."""
+    errs = {}
+    for kind in QUANT:
+        name, fn, plain_fn = QUANT[kind]
+        k = 100 if kind == "int8" else 102
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            for m, kk, n in ((1, k, 200), (8, k, 200), (257, k, 200),
+                             (257, 4160, 272)):
+                x = rand((m, kk), dt, gen)
+                q, s = Q.weight_quantize(
+                    rand((kk, n), torch.float32, gen, 0.02),
+                    "weight_only_" + kind)
+                errs[f"{kind} {m}x{kk}x{n} {dt}"] = compare(
+                    f"{kind} edge", fn(x, q, s), plain_fn(x, q, s), dt)
+        flat = rand((8 * 4160 + 1,), torch.bfloat16, gen)
+        x = flat[1:].view(8, 4160)                  # 2 bytes off alignment
+        q, s = Q.weight_quantize(rand((4160, 272), torch.float32, gen, 0.02),
+                                 "weight_only_" + kind)
+        errs[f"{kind} unaligned x"] = compare(
+            f"{kind} unaligned", fn(x, q, s), plain_fn(x, q, s),
+            torch.bfloat16)
+    every = torch.arange(-128, 128, dtype=torch.int8, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        codes = every.view(16, 16)
+        got = I8.int8_matmul(torch.eye(16, dtype=dt, device="cuda"), codes,
+                             torch.ones(16, device="cuda"))
+        assert torch.equal(got.float(), codes.float()), "int8 codes"
+        got = I4.int4_matmul(torch.eye(32, dtype=dt, device="cuda"), codes,
+                             torch.ones(16, device="cuda"))
+        assert torch.equal(got.float(), I4.unpack_int4(codes).float()), \
+            "int4 nibbles"
+    errs["all 256 bytes"] = 0.0
+    log("quant_edges " + json.dumps(errs))
+    return errs
+
+
 def kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the training kernels draw from their own generator, so the serving
@@ -527,6 +685,11 @@ def kernel_phase():
                 torch.cuda.empty_cache()
     mlp_scratch_rows(tgen)
     flash_edge_checks(tgen)
+    # the weight-only kernels draw from their own generator, so the
+    # earlier cases keep their inputs
+    qgen = torch.Generator(device="cuda").manual_seed(2)
+    rows += quant_kernel_rows(qgen)
+    quant_edge_checks(qgen)
     return rows
 
 
@@ -643,6 +806,72 @@ def engine_phase():
     return res
 
 
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def quant_engine_phase(kind):
+    """The engine phase's model, engine and traffic with
+    Engine(weight_quant=kind): every projection and the LM head launch
+    the int8/int4 kernel (7 per layer + 1 per step), the fused QKV/MLP
+    kernels none, ragged attention one per layer."""
+    name = QUANT[kind][0]
+    t0 = time.perf_counter()
+    model = llama("llama2-7b", dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    bf16_alloc = torch.cuda.memory_allocated()
+    bf16_weights = tensor_bytes(model.parameters())
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
+                 weight_quant=kind).warmup()
+    setup_s = time.perf_counter() - t0
+    qlin = [m for m in model.modules() if isinstance(m, Q.QuantizedLinear)]
+    layers = model.cfg.num_hidden_layers
+    per_step = 7 * layers + 1
+    assert len(qlin) == per_step, len(qlin)
+    kv_bytes = tensor_bytes(c for kv in eng.kv.caches for c in kv)
+    mem = {"bf16_weight_bytes": bf16_weights,
+           "weight_bytes": tensor_bytes(list(model.parameters())
+                                        + list(model.buffers())),
+           "linear_code_bytes": tensor_bytes(m.weight for m in qlin),
+           "bf16_linear_bytes": 2 * sum(m.in_features * m.out_features
+                                        for m in qlin),
+           "memory_allocated_bf16_model": bf16_alloc,
+           "memory_allocated_engine": torch.cuda.memory_allocated(),
+           "kv_pool_bytes": kv_bytes}
+    rng = np.random.default_rng(1)
+    reset_launches()
+    steps0 = eng.steps
+    t1 = time.perf_counter()
+    reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = kernel_launches()
+    steps = eng.steps - steps0
+    stats = eng.prefix_stats()
+    assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
+    for rid, (_, n) in reqs.items():
+        assert len(out[rid]) == n, (rid, len(out[rid]), n)
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert stats["hits"] > 0 and stats["cow_copies"] > 0, stats
+    want = {name: per_step * steps, "ragged_paged_attention": layers * steps,
+            "fused_rms_rope_qkv": 0, "fused_swiglu_mlp": 0}
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+    other = [v[0] for k, v in QUANT.items() if k != kind][0]
+    assert launches[other] == 0, launches
+    res = {"weight_quant": kind, "setup_s": setup_s, "steps": steps,
+           "wall_s": wall, "tokens": eng.tokens_emitted,
+           "tok_s": eng.tokens_emitted / wall,
+           "step_ms": wall / steps * 1e3, "prefix": stats,
+           "launches": got, "launches_per_step": per_step,
+           "memory": mem}
+    res["profile"] = profile_steps(eng, rng)
+    log("quant_engine " + json.dumps(res))
+    del eng, model, qlin
+    torch.cuda.empty_cache()
+    return res
+
+
 def near_tie_equal(ref, got, margins):
     """"equal", or "exempt" when the streams first differ at a step whose
     reference top-2 margin is below TIE; raises otherwise."""
@@ -682,6 +911,52 @@ def cross_check_phase():
                             if v == "exempt"),
            "min_margin": min(min(m) for m in margins.values())}
     log("cross_check " + json.dumps(res))
+    return res
+
+
+def quant_cross_check_phase():
+    """For int8 and int4: 2 layers at full llama2-7b width in f32, the
+    same float weights on both sides, each engine quantizing its own
+    model in place (weight_quant=).  The codes and scales quantized on
+    the card must equal the CPU's bit for bit; greedy streams, the
+    kernels on the card against the plain versions on the CPU, equal
+    under the near-tie rule; prefix stats equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for kind in QUANT:
+        gpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32",
+                    seed=1)
+        cpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32",
+                    device="cpu", seed=1)
+        cpu.load_state_dict(gpu.state_dict())
+        outs = {}
+        for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+            eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                         device=dev, weight_quant=kind).warmup()
+            eng.margins = {}
+            reqs, out = serve(eng, np.random.default_rng(2), 3, 17, 90, 6,
+                              10)
+            assert eng.kv_blocks_used == 0
+            outs[tag] = (out, eng.margins, eng.prefix_stats())
+        cbuf = dict(cpu.named_buffers())
+        gbuf = dict(gpu.named_buffers())
+        assert sorted(cbuf) == sorted(gbuf) and len(gbuf) == 2 * 15
+        for bname, t in gbuf.items():
+            assert torch.equal(t.cpu(), cbuf[bname]), f"{kind} {bname}"
+        (ref, margins, rstats), (got, _, gstats) = outs["cpu"], outs["gpu"]
+        verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
+                    for rid in ref}
+        assert sorted(got) == sorted(ref) and len(ref) == 6
+        assert rstats == gstats, (rstats, gstats)
+        res[kind] = {"requests": len(ref),
+                     "equal": sum(v == "equal" for v in verdicts.values()),
+                     "exempt": sorted(r for r, v in verdicts.items()
+                                      if v == "exempt"),
+                     "min_margin": min(min(m) for m in margins.values()),
+                     "buffers_bit_equal": len(gbuf)}
+        del gpu, cpu, outs
+        torch.cuda.empty_cache()
+    log("quant_cross_check " + json.dumps(res))
     return res
 
 
@@ -900,12 +1175,19 @@ def main() -> int:
                                "per_source_s": took}))
     kernel_rows = kernel_phase()
     engine = engine_phase()
+    quant = {kind: quant_engine_phase(kind) for kind in QUANT}
     cross_check_phase()
+    quant_cross_check_phase()
     train = train_phase()
     train_cross_check_phase()
     main_rows = {r["name"]: r for r in kernel_rows
-                 if r["geometry"] == "llama2-7b" and r["dtype"] == "bfloat16"}
+                 if r["geometry"] == "llama2-7b" and r["dtype"] == "bfloat16"
+                 and "shape" not in r}
+    main_rows.update({r["name"]: r for r in kernel_rows
+                      if r["geometry"] == "llama2-7b-step"})
     launches = {**train["launches"], **engine["launches"]}
+    for kind, (name, _, _) in QUANT.items():
+        launches[name] = quant[kind]["launches"][name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

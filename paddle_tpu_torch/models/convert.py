@@ -3,7 +3,11 @@
 The reference exports its parameters as numpy arrays
 (``{name: np.asarray(p) for name, p in model.named_parameters()}``);
 :func:`params_from_numpy` loads them into the port model of the same
-config, name for name, layout for layout.  A JAX bf16 array exports as an
+config, name for name, layout for layout -- and a weight-only quantized
+model's buffers as well (``named_buffers()``: the int8 codes in
+``...weight``, the f32 ``...weight_scale``; a ``None`` bias is skipped),
+bit for bit into a port model that ``nn.quant.quantize_linears`` turned
+into the same algo.  A JAX bf16 array exports as an
 ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` refuses, so
 such arrays go through float32 first -- exact, since every bf16 value is
 an f32 value -- and are then cast to the parameter's dtype.
@@ -34,21 +38,28 @@ def _to_tensor(arr) -> torch.Tensor:
 
 def params_from_numpy(model: nn.Module, arrays: Dict[str, np.ndarray]
                       ) -> nn.Module:
-    """Copy ``arrays`` into ``model``'s parameters in place; every
-    parameter must be given, with its exact shape, and no extra name is
-    accepted.  Returns ``model``."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    unexpected = sorted(set(arrays) - set(params))
+    """Copy ``arrays`` into ``model``'s parameters and buffers in place;
+    every one must be given, with its exact shape and its kind (integer
+    codes into integer buffers, floats into floats), and no extra name is
+    accepted.  ``None`` entries (a quantized layer's absent bias) are
+    skipped.  Returns ``model``."""
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    given = {k for k, v in arrays.items() if v is not None}
+    missing = sorted(set(targets) - given)
+    unexpected = sorted(given - set(targets))
     if missing or unexpected:
         raise KeyError(f"parameter names differ: missing {missing}, "
                        f"unexpected {unexpected}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in targets.items():
             t = _to_tensor(arrays[name])
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                                  f"{tuple(p.shape)}")
+            if t.is_floating_point() != p.is_floating_point():
+                raise ValueError(f"{name}: {t.dtype} values for a "
+                                 f"{p.dtype} tensor")
             p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
 

@@ -11,9 +11,14 @@ Ported:
 - the paged ragged serving forward (``LlamaModel.forward`` with
   ``caches``, ``block_tables`` and ``span_starts``): ``fused_rms_rope_qkv``,
   ``ragged_paged_attend`` and ``fused_swiglu_mlp``, and
-  ``LlamaForCausalLM.logits``.
+  ``LlamaForCausalLM.logits``;
+- the unfused branch of both (``fused_ops="off"``, and wherever a
+  projection is weight-only quantized, as ``_use_fused`` decides): the
+  input norm, ``q_proj``/``k_proj``/``v_proj`` and
+  ``apply_rotary_pos_emb``; ``down_proj(swiglu(gate_proj(x),
+  up_proj(x)))``.
 The other paged branches, ``generate()``, context/model parallelism, the
-chunked loss and the ``"off"``/``"mega"`` fused-op modes raise
+chunked loss, ``fuse_qkv_mlp`` and ``fused_ops="mega"`` raise
 ``NotImplementedError`` (ROADMAP.md lists them as still to port).
 ``"auto"`` resolves to ``"on"``: in the port every fused entry point
 serves (the kernel on the card, the plain version on the CPU).
@@ -145,6 +150,18 @@ class _Init:
                       dtype=self.dtype, generator=self.generator)
 
 
+def _use_fused(cfg: LlamaConfig, layers) -> bool:
+    """Whether a fused entry point serves the projections ``layers``:
+    not under ``fused_ops="off"``, and never for a weight-only quantized
+    projection -- its ``.weight`` holds int codes with the scale in a
+    separate buffer, which the fused entries (reading ``.weight``
+    directly) would drop; its fusion is the int8/int4 matmul kernel in
+    the layer's own forward instead (the reference's ``_use_fused``)."""
+    if any(hasattr(l, "weight_scale") for l in layers):
+        return False
+    return cfg.fused_ops != "off"
+
+
 class LlamaRMSNorm(nn.Module):
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
@@ -169,10 +186,12 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, norm_weight, attn_mask=None, cache=None,
                 seq_lens=None, block_tables=None, span_starts=None):
-        """``x`` is the UN-normed residual stream and ``norm_weight`` the
-        input layernorm's weight, folded into the fused norm->qkv->rope
-        kernel; cos/sin are (S, head_dim) or per-slot (B, S, head_dim).
-        Without a cache: causal attention over the sequence, returns
+        """With ``norm_weight``, ``x`` is the UN-normed residual stream and
+        the input layernorm folds into the fused norm->qkv->rope kernel;
+        without it (the unfused branch) ``x`` is already normed and goes
+        through the three projections and ``apply_rotary_pos_emb``.
+        cos/sin are (S, head_dim) or per-slot (B, S, head_dim).  Without
+        a cache: causal attention over the sequence, returns
         ``o_proj(attn)``.  With the paged pools (``cache``,
         ``block_tables``, ``span_starts``): the ragged serving branch,
         returns ``(o_proj(attn), cache)``."""
@@ -181,16 +200,21 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, s = x.shape[:2]
         hd = cfg.head_dim
-        if cos.ndim == 2:
-            cos, sin = (t[None].expand(b, s, hd) for t in (cos, sin))
-        q, k, v = fused_rms_rope_qkv(
-            x.reshape(b * s, cfg.hidden_size), norm_weight,
-            self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
-            cos.reshape(b * s, hd), sin.reshape(b * s, hd), hd,
-            cfg.rms_norm_eps)
+        if norm_weight is not None:
+            c2, s2 = (cos, sin) if cos.ndim == 3 else \
+                (t[None].expand(b, s, hd) for t in (cos, sin))
+            q, k, v = fused_rms_rope_qkv(
+                x.reshape(b * s, cfg.hidden_size), norm_weight,
+                self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                c2.reshape(b * s, hd), s2.reshape(b * s, hd), hd,
+                cfg.rms_norm_eps)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         q = q.reshape(b, s, cfg.num_attention_heads, hd)
         k = k.reshape(b, s, cfg.num_key_value_heads, hd)
         v = v.reshape(b, s, cfg.num_key_value_heads, hd)
+        if norm_weight is None:
+            q, k = F.apply_rotary_pos_emb(q, k, cos, sin)
         if cache is None:
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
@@ -213,6 +237,10 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         from ..incubate.nn.functional import fused_swiglu_mlp
+        if not _use_fused(self.cfg, (self.gate_proj, self.up_proj,
+                                     self.down_proj)):
+            return self.down_proj(F.swiglu(self.gate_proj(x),
+                                           self.up_proj(x)))
         h = self.cfg.hidden_size
         lead = x.shape[:-1]
         y = fused_swiglu_mlp(x.reshape(-1, h), self.gate_proj.weight,
@@ -231,15 +259,25 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(cfg, init)
         self.mlp = LlamaMLP(cfg, init)
 
+    def _attn_input(self, x):
+        """(attention input, norm_weight): under the fused qkv op the
+        layernorm folds into the attention projection -- hand the raw
+        residual stream and the norm weight down instead of norming
+        here."""
+        attn = self.self_attn
+        if _use_fused(self.cfg, (attn.q_proj, attn.k_proj, attn.v_proj)):
+            return x, self.input_layernorm.weight
+        return self.input_layernorm(x), None
+
     def forward(self, x, cos, sin, attn_mask=None, cache=None,
                 seq_lens=None, block_tables=None, span_starts=None):
         """Without a cache returns ``x``; with the paged pools returns
         ``(x, cache)``."""
-        nw = self.input_layernorm.weight
+        attn_in, nw = self._attn_input(x)
         if cache is None:
-            attn = self.self_attn(x, cos, sin, nw, attn_mask)
+            attn = self.self_attn(attn_in, cos, sin, nw, attn_mask)
         else:
-            attn, cache = self.self_attn(x, cos, sin, nw, cache=cache,
+            attn, cache = self.self_attn(attn_in, cos, sin, nw, cache=cache,
                                          seq_lens=seq_lens,
                                          block_tables=block_tables,
                                          span_starts=span_starts)
@@ -322,8 +360,12 @@ class LlamaForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         mode = getattr(cfg, "fused_ops", "auto")
-        if mode not in ("on", "auto"):
+        if mode == "mega":
             raise NotImplementedError(f"fused_ops={mode!r}" + _TODO)
+        if mode not in ("on", "auto", "off"):
+            raise ValueError(f"fused_ops={mode!r}: expected on|off|auto|mega")
+        if cfg.fuse_qkv_mlp:
+            raise NotImplementedError("fuse_qkv_mlp" + _TODO)
         if cfg.pipeline_stages != 1 or cfg.sequence_parallel \
                 or cfg.context_parallel:
             raise NotImplementedError("model parallelism" + _TODO)

@@ -5,7 +5,7 @@ The sources are ``paddle_tpu_torch/csrc/*.cu``; ``_build`` compiles them
 at first use."""
 
 from . import (flash_attention, fused_adamw, fused_mlp, fused_norm_qkv,
-               ragged_attention)
+               int4_matmul, int8_matmul, ragged_attention)
 
 __all__ = ["flash_attention", "fused_adamw", "fused_mlp", "fused_norm_qkv",
-           "ragged_attention"]
+           "int4_matmul", "int8_matmul", "ragged_attention"]

@@ -7,7 +7,8 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own with
 
 into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  The file
-name carries a hash of the sources and flags, so an edited kernel is
+name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel is
 rebuilt and a stale library is never loaded.  :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for all of them.  Nothing is
 built at import time: the first launch of a kernel builds it.
@@ -36,15 +37,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fused_norm_qkv", "fused_mlp", "ragged_attention",
-           "flash_attention", "fused_adamw")
+           "flash_attention", "fused_adamw", "int8_matmul", "int4_matmul")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    """The C entry points' dtype code (0 f32, 1 bf16)."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+def dtype_code(dtype: torch.dtype,
+               allowed=(torch.float32, torch.bfloat16)) -> int:
+    """The C entry points' dtype code (0 f32, 1 bf16, 2 f16) of a dtype
+    in ``allowed``, the types the calling kernel takes."""
+    if dtype not in allowed:
+        names = ", ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"kernel takes {names}; got {dtype}")
     return _DTYPE_CODES[dtype]
 
 
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -123,6 +127,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._lib = None
+        self._helpers = {}
 
     def _library(self):
         if self._lib is None:
@@ -136,10 +141,13 @@ class Kernel:
         return self._lib
 
     def helper(self, symbol: str, argtypes: List, restype):
-        """Another C function of the same library (sizes of scratch)."""
-        fn = getattr(self._library(), symbol)
-        fn.argtypes, fn.restype = argtypes, restype
-        return fn
+        """Another C function of the same library (sizes of scratch),
+        bound once."""
+        if symbol not in self._helpers:
+            fn = getattr(self._library(), symbol)
+            fn.argtypes, fn.restype = argtypes, restype
+            self._helpers[symbol] = fn
+        return self._helpers[symbol]
 
     def launch(self, *args) -> None:
         lib = self._library()

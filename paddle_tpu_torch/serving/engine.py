@@ -25,17 +25,20 @@ Step anatomy (one :meth:`step` call):
    everything else returns to the free list.
 
 On the card each decoder layer of the step launches the three
-hand-written kernels (``ops/cuda``); on the CPU (``device="cpu"``) the
-same step runs their plain versions.  The step's shapes never depend on
+hand-written kernels (``ops/cuda``); with ``weight_quant`` the
+projections and the LM head launch the int8/int4 matmul kernel instead
+of the fused QKV/MLP kernels.  On the CPU (``device="cpu"``) the same
+step runs their plain versions.  The step's shapes never depend on
 occupancy, as in the reference.  Not ported yet (ROADMAP.md): speculative
-decoding, LoRA, weight quantization, meshes, disaggregated roles,
-preemption/swap, telemetry and fault sites.
+decoding, LoRA, meshes, disaggregated roles, preemption/swap, telemetry
+and fault sites.
 """
 
 from __future__ import annotations
 
 import collections
 import hashlib
+import itertools
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -115,6 +118,12 @@ class Engine:
     prefixes across requests, with copy-on-write.  ``keep_finished``: how
     many finished requests stay queryable via :meth:`output_ids`.
 
+    ``weight_quant``: ``"int8"``, ``"int4"`` or an ``nn.quant`` algo
+    name swaps the model's Linears for weight-only quantized ones IN
+    PLACE (``nn.quant.quantize_linears``), after every validation here
+    (a rejected construction leaves the caller's model untouched), so
+    every projection and the LM head stream int8 or packed int4.
+
     ``margins``: set it to a dict to record, per request id, the top-2
     logit margin of every emitted token (the near-tie rule of the
     token-identity checks); None (the default) records nothing.
@@ -126,17 +135,21 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
                  enable_prefix_caching: bool = True, seed: int = 0,
-                 keep_finished: int = 1024, device=None):
+                 keep_finished: int = 1024,
+                 weight_quant: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
                 f"{type(model).__name__} does not support the paged "
                 "serving path (needs supports_paged decoder layers and "
                 "pipeline_stages == 1)")
-        mdev = next(model.parameters()).device
-        if mdev != self.device:
-            raise ValueError(f"model parameters are on {mdev}, the engine "
-                             f"runs on {self.device}")
+        # buffers too: a quantized model keeps its codes and scales there
+        mdevs = {t.device for t in itertools.chain(model.parameters(),
+                                                   model.buffers())}
+        if mdevs != {self.device}:
+            raise ValueError(
+                f"model tensors are on {sorted(map(str, mdevs))}, the "
+                f"engine runs on {self.device}")
         n_layers, kv_heads, head_dim = _kv_geometry(model)
         if max_batch < 1 or max_seq_len < page_size:
             raise ValueError(
@@ -153,6 +166,12 @@ class Engine:
             raise ValueError(
                 f"max_seq_len={max_seq_len} exceeds the model's "
                 f"max_position_embeddings={max_pos}")
+        if weight_quant is not None:
+            from ..nn.quant import quantize_linears
+            algo = {"int8": "weight_only_int8",
+                    "int4": "weight_only_int4"}.get(weight_quant,
+                                                    weight_quant)
+            quantize_linears(model, algo=algo)
         model.eval()
         self.model = model
         self.max_batch = int(max_batch)

@@ -2,7 +2,9 @@
 the CPU: the same parameters, loaded through ``params_from_numpy``, and
 one ragged serving step over the same pools must agree within 1e-4
 (f32): hidden states on live rows, the last-row logits, and every written
-pool page."""
+pool page.  The step and the dense forward run under both
+``fused_ops="on"`` (the fused entry points) and ``"off"`` (the unfused
+projections), each against the JAX model of the same mode."""
 
 import dataclasses
 
@@ -24,13 +26,21 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(scope="module")
-def models():
-    pt.seed(0)
-    jm = jax_llama("tiny", fused_ops="on")
-    arrays = {k: np.asarray(v) for k, v in jm.named_parameters()}
-    tm = params_from_numpy(torch_llama("tiny", device="cpu",
-                                       fused_ops="on"), arrays)
-    return jm, tm
+def models_by_mode():
+    """{fused_ops: (JAX model, port model)}, one seeded weight set."""
+    out = {}
+    for mode in ("on", "off"):
+        pt.seed(0)
+        jm = jax_llama("tiny", fused_ops=mode)
+        arrays = {k: np.asarray(v) for k, v in jm.named_parameters()}
+        out[mode] = (jm, params_from_numpy(
+            torch_llama("tiny", device="cpu", fused_ops=mode), arrays))
+    return out
+
+
+@pytest.fixture(scope="module")
+def models(models_by_mode):
+    return models_by_mode["on"]
 
 
 def test_presets_and_parameter_names_match(models):
@@ -42,8 +52,9 @@ def test_presets_and_parameter_names_match(models):
     assert tshapes == jshapes
 
 
-def test_one_ragged_step_matches_jax(models):
-    jm, tm = models
+@pytest.mark.parametrize("fused_ops", ["on", "off"])
+def test_one_ragged_step_matches_jax(models_by_mode, fused_ops):
+    jm, tm = models_by_mode[fused_ops]
     cfg = jm.cfg
     rng = np.random.default_rng(0)
     b, c, page, nb, mb = 4, 8, 8, 24, 6
@@ -110,6 +121,8 @@ def test_paths_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_llama("tiny", device="cpu", fused_ops="mega")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_llama("tiny", device="cpu", fuse_qkv_mlp=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_llama("tiny", device="cpu", use_recompute=True)
     tm = torch_llama("tiny", device="cpu", loss_seq_chunks=2)
     ids = torch.zeros((1, 4), dtype=torch.int64)
@@ -119,10 +132,11 @@ def test_paths_not_ported_raise():
         tm.model(ids, caches=[None] * tm.cfg.num_hidden_layers)
 
 
-def test_dense_forward_matches_jax(models):
+@pytest.mark.parametrize("fused_ops", ["on", "off"])
+def test_dense_forward_matches_jax(models_by_mode, fused_ops):
     """The uncached forward: logits, and the masked-mean loss with -100
     labels, f32."""
-    jm, tm = models
+    jm, tm = models_by_mode[fused_ops]
     rng = np.random.default_rng(7)
     ids = rng.integers(0, jm.cfg.vocab_size, size=(2, 12)).astype(np.int32)
     labels = np.roll(ids, -1, axis=1)
