@@ -85,15 +85,20 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import PRESETS, causal_lm_loss, llama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import quant as Q
-from paddle_tpu_torch.ops.cuda import _build
+from paddle_tpu_torch.ops.cuda import KERNELS as CUDA_KERNELS
+from paddle_tpu_torch.ops.cuda import _build, counts
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_adamw as AD
 from paddle_tpu_torch.ops.cuda import fused_mlp as FM
 from paddle_tpu_torch.ops.cuda import fused_norm_qkv as FQ
 from paddle_tpu_torch.ops.cuda import int4_matmul as I4
 from paddle_tpu_torch.ops.cuda import int8_matmul as I8
+from paddle_tpu_torch.ops.cuda import lora_matmul as LM
+from paddle_tpu_torch.ops.cuda import mega_decode as MD
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
-from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.nn import functional as NF
+from paddle_tpu_torch.serving import Engine, LoRAPool, random_adapter
 
 # H100 SXM, NVIDIA's data sheet (dense): memory rate and peak by type
 HBM_BYTES_S = 3.35e12
@@ -108,28 +113,32 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
 # near-tie rule: a greedy token may differ only where the reference's
 # top-2 logit margin is below this (f32 logits here differ by ~1e-5)
 TIE = 1e-3
-# (name, launch counter, source, TPU kernel it replaces)
+# (name in ops.cuda.KERNELS, source, TPU kernel it replaces)
 KERNELS = [
-    ("fused_rms_rope_qkv", FQ.KERNEL,
+    ("fused_rms_rope_qkv",
      "paddle_tpu_torch/csrc/fused_norm_qkv.cu",
      "paddle_tpu/ops/pallas/fused_norm_qkv.py:158"),
-    ("fused_swiglu_mlp", FM.KERNEL, "paddle_tpu_torch/csrc/fused_mlp.cu",
+    ("fused_swiglu_mlp", "paddle_tpu_torch/csrc/fused_mlp.cu",
      "paddle_tpu/ops/pallas/fused_mlp.py:148"),
-    ("ragged_paged_attention", RA.KERNEL,
+    ("ragged_paged_attention",
      "paddle_tpu_torch/csrc/ragged_attention.cu",
      "paddle_tpu/ops/pallas/ragged_attention.py:137"),
-    ("flash_attention_fwd", FA.FWD,
+    ("flash_attention_fwd",
      "paddle_tpu_torch/csrc/flash_attention.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:161"),
-    ("flash_attention_bwd", FA.BWD,
+    ("flash_attention_bwd",
      "paddle_tpu_torch/csrc/flash_attention.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:412"),
-    ("fused_adamw", AD.KERNEL, "paddle_tpu_torch/csrc/fused_adamw.cu",
+    ("fused_adamw", "paddle_tpu_torch/csrc/fused_adamw.cu",
      "paddle_tpu/ops/pallas/fused_adamw.py:89"),
-    ("int8_matmul", I8.KERNEL, "paddle_tpu_torch/csrc/int8_matmul.cu",
+    ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
      "paddle_tpu/ops/pallas/int8_matmul.py:92"),
-    ("int4_matmul", I4.KERNEL, "paddle_tpu_torch/csrc/int4_matmul.cu",
+    ("int4_matmul", "paddle_tpu_torch/csrc/int4_matmul.cu",
      "paddle_tpu/ops/pallas/int4_matmul.py:143"),
+    ("mega_decode", "paddle_tpu_torch/csrc/mega_decode.cu",
+     "paddle_tpu/ops/pallas/mega_decode.py:261"),
+    ("grouped_bgmv", "paddle_tpu_torch/csrc/lora_matmul.cu",
+     "paddle_tpu/ops/pallas/lora_matmul.py:109"),
 ]
 SERVING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "ragged_paged_attention")
 QUANT = {"int8": ("int8_matmul", I8.int8_matmul, I8.plain),
@@ -141,6 +150,17 @@ QUANT_STEP = [(128, 4096, 4096, 4 * 32), (128, 4096, 11008, 2 * 32),
               (128, 11008, 4096, 32), (8, 4096, 32000, 1)]
 TRAINING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "flash_attention_fwd",
             "flash_attention_bwd", "fused_adamw")
+# the multi-LoRA llama2-7b engine step: (d_in, d_out, calls per step) of
+# every adapted projection -- q, k, v, o; gate, up; down -- at T = B*C =
+# 8 x 16 rows, rank 16, 32 layers
+LORA_STEP = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32),
+             (11008, 4096, 32)]
+LORA_RANK = 16
+# the random adapters' N(0, scale) entries: the delta x @ A @ B of a
+# normed 4096-wide row then has a std of ~4096**0.5 * 16**0.5 * scale**2
+# = 0.64, half the base projection's (~1.28), so adapters change greedy
+# streams while bf16 logits stay finite
+LORA_SCALE = 0.05
 
 
 def llama_cfg(name, **overrides):
@@ -169,6 +189,23 @@ def cuda_ms(fn, iters: int = 5, reps: int = 5, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device busy time of one ``fn()`` in ms: the kernels' durations in a
+    torch.profiler trace of ``calls`` calls, summed and divided by
+    ``calls`` -- where a call is shorter than the host's time to issue it,
+    cuda_ms measures the host and this the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -626,6 +663,271 @@ def quant_edge_checks(gen):
     return errs
 
 
+def ragged_batch(b, c, page, max_ctx, rng, idle=True):
+    """Per-slot starts/lens of a serving step mixing decode rows deep in
+    their context, a fresh prefill chunk, a chunk whose start straddles a
+    page, partial chunks and (``idle``) an idle last slot; block tables
+    of a random permutation of the pool, padded with the out-of-range
+    sentinel.  Returns (starts, lens, tables, nb)."""
+    mb = max_ctx // page
+    nb = b * mb
+    starts = np.zeros(b, np.int32)
+    lens = np.zeros(b, np.int32)
+    for s in range(b):
+        kind = s % 6
+        if kind == 0:
+            starts[s], lens[s] = rng.integers(300, max_ctx - 1), 1
+        elif kind == 1:
+            starts[s], lens[s] = 0, c
+        elif kind == 2:
+            starts[s], lens[s] = 3 * page + page // 2 + 1, c
+        elif kind == 3:
+            starts[s], lens[s] = rng.integers(16, 200), rng.integers(1, c + 1)
+        elif kind == 4:
+            starts[s], lens[s] = rng.integers(17, 300), 1
+        else:
+            starts[s], lens[s] = rng.integers(0, max_ctx - c), c
+    if idle:
+        lens[b - 1] = 0
+    tables = np.full((b, mb), nb, np.int32)
+    perm = rng.permutation(nb)
+    used = 0
+    for s in range(b):
+        n = -(-(int(starts[s]) + int(lens[s])) // page)
+        tables[s, :n] = perm[used:used + n]
+        used += n
+    return starts, lens, tables, nb
+
+
+def mega_inputs(b, c, h, nq, nk, hd, page, max_ctx, dtype, gen, rng,
+                idle=True):
+    starts, lens, tables, nb = ragged_batch(b, c, page, max_ctx, rng, idle)
+    hkv = nk // hd
+    x = rand((b, c, h), dtype, gen)
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+    wq, wk, wv = (rand((h, n), dtype, gen, 0.02) for n in (nq, nk, nk))
+    wo = rand((nq, h), dtype, gen, 0.02)
+    kp = rand((nb, page, hkv, hd), dtype, gen)
+    vp = rand((nb, page, hkv, hd), dtype, gen)
+    tt, st, ln = (torch.from_numpy(a).cuda() for a in (tables, starts, lens))
+    pos = st.long()[:, None] + torch.arange(c, device="cuda")
+    cos, sin = NF.rope_cos_sin(c, hd, dtype=dtype, position_ids=pos)
+    args = (x, g, wq, wk, wv, wo, cos, sin, kp, vp, tt, st, ln, hd, 1e-5)
+    return args, starts, lens
+
+
+def mega_check(args, dtype, tag="mega"):
+    """Kernel against plain: the output on live rows, span k/v on every
+    row; returns the larger error."""
+    (x, *_rest) = args
+    ln = args[12]
+    got, want = MD.mega_decode(*args), MD.plain(*args)
+    rows = torch.arange(x.shape[1], device="cuda")[None, :] < ln[:, None]
+    return max(compare(f"{tag} out", got[0], want[0], dtype, rows),
+               compare(f"{tag} span k", got[1], want[1], dtype),
+               compare(f"{tag} span v", got[2], want[2], dtype))
+
+
+def mega_case(b, c, h, nq, nk, hd, page, max_ctx, dtype, gen, rng):
+    """The decode megakernel at a serving step's shape.  Composition: the
+    port's chain it replaces on the card (QKV kernel, span write, ragged
+    kernel, cuBLAS O projection, residual add).  Library: the same chain
+    in plain PyTorch calls with cuBLAS products and no SDPA (rms_norm,
+    x @ [Wq|Wk|Wv], RoPE, the span write, gathered pages, einsum scores,
+    softmax, einsum values, O projection, add)."""
+    args, starts, lens = mega_inputs(b, c, h, nq, nk, hd, page, max_ctx,
+                                     dtype, gen, rng)
+    (x, g, wq, wk, wv, wo, cos, sin, kp, vp, tt, st, ln, _, eps) = args
+    err = mega_check(args, dtype)
+    kern = lambda: MD.mega_decode(*args)
+    plain = lambda: MD.plain(*args)
+    t, hkv, grp = b * c, nk // hd, nq // nk
+    wcat = torch.cat([wq, wk, wv], 1)
+
+    def composition():
+        q, k, v = FQ.fused_rms_rope_qkv(
+            x.reshape(t, h), g, wq, wk, wv, cos.reshape(t, hd),
+            sin.reshape(t, hd), hd, eps)
+        attn, _ = IF.ragged_paged_attend(
+            (kp, vp), q.view(b, c, -1, hd), k.view(b, c, hkv, hd),
+            v.view(b, c, hkv, hd), tt, st, ln)
+        return x + (attn.reshape(t, nq) @ wo).view(b, c, h)
+
+    def library():
+        nx = F.rms_norm(x, (h,), g, eps)
+        y = nx @ wcat
+        rot = lambda u: torch.cat([-u[..., hd // 2:], u[..., :hd // 2]], -1)
+        cc, ss = cos[:, :, None], sin[:, :, None]
+        q = y[..., :nq].view(b, c, -1, hd)
+        k = y[..., nq:nq + nk].view(b, c, hkv, hd)
+        q, k = q * cc + rot(q) * ss, k * cc + rot(k) * ss
+        RA.span_write(kp, vp, k, y[..., nq + nk:].view(b, c, hkv, hd), tt,
+                      st, ln)
+        kd, vd = RA.paged_gather_dense(kp, vp, tt)
+        sc = torch.einsum("bckgd,bskd->bckgs",
+                          q.view(b, c, hkv, grp, hd), kd).float() * hd ** -0.5
+        pos = st.long()[:, None] + torch.arange(c, device="cuda")
+        mask = torch.arange(kd.shape[1], device="cuda") <= pos[..., None]
+        pr = torch.softmax(sc.masked_fill(~mask[:, :, None, None],
+                                          float("-inf")), -1).to(x.dtype)
+        att = torch.einsum("bckgs,bskd->bckgd", pr, vd).reshape(t, nq)
+        return x + (att @ wo).view(b, c, h)
+
+    it = x.element_size()
+    prefix_pages = sum(-(-int(s_) // page) for s_, n in zip(starts, lens)
+                       if n)
+    # read weights, norm, x, cos/sin and the live prefix pages; write out
+    # and span k/v
+    nbytes = it * (h * (nq + 2 * nk) + nq * h + h + 2 * t * hd + 2 * t * h
+                   + 2 * t * nk + 2 * prefix_pages * page * hkv * hd) \
+        + 4 * (tt.numel() + 2 * b)
+    ctx = sum(int(s_) + j + 1 for s_, n in zip(starts, lens)
+              for j in range(int(n)))
+    ops = 2.0 * t * h * (nq + 2 * nk) + 2.0 * t * nq * h \
+        + 4.0 * ctx * hd * (nq // hd)
+    return err, kern, plain, library, nbytes, ops, composition
+
+
+def mega_edge_checks(gen, rng):
+    """The megakernel off the main path's shapes: a decode-only batch (C =
+    1), a single live slot, head dims 64 and 256, GQA 4 and 2, page 64,
+    in bf16 and f32."""
+    errs = {}
+    cases = (("C=1", 8, 1, 4096, 4096, 4096, 128, 16),
+             ("one live slot", 4, 16, 4096, 4096, 4096, 128, 16),
+             ("hd 64 gqa 4", 4, 16, 1024, 1024, 256, 64, 16),
+             ("hd 256 gqa 2", 4, 8, 2048, 2048, 1024, 256, 16),
+             ("page 64", 4, 16, 1024, 1024, 1024, 128, 64))
+    for key, b, c, h, nq, nk, hd, page in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            args, starts, lens = mega_inputs(b, c, h, nq, nk, hd, page, 512,
+                                             dt, gen, rng)
+            if key == "one live slot":          # slot 0: a decode row
+                args[12][1:] = 0
+            errs[f"{key} {dt}"] = mega_check(args, dt, key)
+    log("mega_edges " + json.dumps(errs))
+    return errs
+
+
+def bgmv_inputs(bsz, c, d_in, d_out, r, dtype, gen, idx, n=5):
+    x = rand((bsz, c, d_in), dtype, gen)
+    a = rand((n, d_in, r), dtype, gen, LORA_SCALE)
+    b = rand((n, r, d_out), dtype, gen, LORA_SCALE)
+    a[0] = 0
+    b[0] = 0
+    return x, a, b, torch.tensor(idx, dtype=torch.int32, device="cuda")
+
+
+def bgmv_check(x, a, b, ix, dtype, tag="bgmv"):
+    """Kernel against plain; index-0 rows must be exactly 0."""
+    got = LM.grouped_bgmv(x, a, b, ix)
+    err = compare(tag, got, LM.plain(x, a, b, ix), dtype)
+    base = ix == 0
+    assert bool((got[base] == 0).all()), f"{tag}: index-0 rows not 0"
+    return err
+
+
+def bgmv_case(d_in, d_out, dtype, gen, bsz=8, c=16, r=LORA_RANK):
+    """Grouped BGMV at one projection of the multi-LoRA step: 8 slots of
+    16 rows, adapters 1-4 and two base slots.  Library: the gathered
+    torch.bmm shrink and expand over index_select'ed stacks."""
+    idx = [0, 1, 2, 3, 0, 4, 1, 2]
+    x, a, b, ix = bgmv_inputs(bsz, c, d_in, d_out, r, dtype, gen, idx)
+    err = bgmv_check(x, a, b, ix, dtype)
+    kern = lambda: LM.grouped_bgmv(x, a, b, ix)
+    plain = lambda: LM.plain(x, a, b, ix)
+    library = lambda: torch.bmm(torch.bmm(x, a.index_select(0, ix.long())),
+                                b.index_select(0, ix.long()))
+    it = x.element_size()
+    live = sum(1 for i in idx if i)
+    distinct = len({i for i in idx if i})
+    nbytes = it * (x.numel() + bsz * c * d_out
+                   + distinct * r * (d_in + d_out)) + 4 * bsz
+    ops = 2.0 * live * c * r * (d_in + d_out)
+    return err, kern, plain, library, nbytes, ops
+
+
+def bgmv_edge_checks(gen):
+    """Grouped BGMV off the main path's shapes: rank 8, 24 and 64, C = 1,
+    a single live slot, d_in and d_out not multiples of the chunk or
+    stripe (100, 1000), in bf16 and f32."""
+    errs = {}
+    cases = (("rank 8", 8, 16, 4096, 4096, 8, [0, 1, 2, 3, 0, 4, 1, 2]),
+             ("rank 24", 4, 16, 1000, 700, 24, [2, 0, 4, 1]),
+             ("rank 64", 4, 16, 4096, 4096, 64, [1, 2, 0, 3]),
+             ("C=1", 8, 1, 4096, 11008, 16, [0, 1, 2, 3, 0, 4, 1, 2]),
+             ("one live slot", 8, 16, 4096, 4096, 16, [0, 0, 0, 3, 0, 0, 0,
+                                                       0]),
+             ("d_in 100 d_out 1000", 3, 5, 100, 1000, 16, [1, 0, 2]))
+    for key, bsz, c, d_in, d_out, r, idx in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            x, a, b, ix = bgmv_inputs(bsz, c, d_in, d_out, r, dt, gen, idx)
+            errs[f"{key} {dt}"] = bgmv_check(x, a, b, ix, dt, key)
+    log("bgmv_edges " + json.dumps(errs))
+    return errs
+
+
+def timed_row(name, geom, dt, case, extra=None):
+    err, kern, plain, library, nbytes, ops, *more = case
+    torch.cuda.synchronize()
+    bms, by = bound_ms(nbytes, ops, dt)
+    row = {"name": name, "geometry": geom,
+           "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+           "tol": TOL[dt], "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+           "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+           "library_device_ms": device_ms(library), "bound_ms": bms,
+           "bound_by": by}
+    if more:
+        row["composition_ms"] = cuda_ms(more[0])
+    row.update(extra or {})
+    log("kernel " + json.dumps(row))
+    return row
+
+
+def new_kernel_rows(gen, rng):
+    """The decode megakernel at the llama2-7b engine step (B=8, C=16,
+    page 16, contexts up to 512) and at the llama2-70b GQA geometry; the
+    grouped BGMV at the multi-LoRA step's three geometries and its sum
+    over one step's 224 calls; then both kernels' edge checks."""
+    rows = []
+    for geom, (h, nq, nk) in (("llama2-7b", (4096, 4096, 4096)),
+                              ("llama2-70b-gqa", (8192, 8192, 1024))):
+        for dt in (torch.bfloat16, torch.float32):
+            grid = MD.KERNEL.helper("pt_mega_decode_grid",
+                                    [ctypes.c_int] * 9, ctypes.c_int)(
+                8, 16, h, nq, nk, 16, nk // 128, 128,
+                _build.dtype_code(dt))
+            rows.append(timed_row(
+                "mega_decode", geom, dt,
+                mega_case(8, 16, h, nq, nk, 128, 16, 512, dt, gen, rng),
+                {"grid_blocks": grid}))
+            torch.cuda.empty_cache()
+    for d_in, d_out, calls in LORA_STEP:
+        for dt in (torch.bfloat16, torch.float32):
+            rows.append(timed_row(
+                "grouped_bgmv", "llama2-7b", dt, bgmv_case(d_in, d_out, dt,
+                                                           gen),
+                {"shape": [d_in, d_out, LORA_RANK], "calls_per_step": calls}))
+    part = [r for r in rows if r["name"] == "grouped_bgmv"
+            and r["dtype"] == "bfloat16"]
+    step = {"name": "grouped_bgmv", "geometry": "llama2-7b-step",
+            "dtype": "bfloat16",
+            "calls_per_step": sum(r["calls_per_step"] for r in part),
+            "max_abs_err": max(r["max_abs_err"] for r in part)}
+    for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms"):
+        step[key] = sum(r[key] * r["calls_per_step"] for r in part)
+    by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
+                   if r["bound_by"] == "bytes")
+    step["bound_by"] = "bytes" if by_bytes >= step["bound_ms"] / 2 \
+        else "operations"
+    rows.append(step)
+    log("kernel " + json.dumps(step))
+    mega_edge_checks(gen, rng)
+    bgmv_edge_checks(gen)
+    return rows
+
+
 def kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the training kernels draw from their own generator, so the serving
@@ -690,6 +992,9 @@ def kernel_phase():
     qgen = torch.Generator(device="cuda").manual_seed(2)
     rows += quant_kernel_rows(qgen)
     quant_edge_checks(qgen)
+    # the megakernel and grouped-BGMV cases: a generator of their own
+    rows += new_kernel_rows(torch.Generator(device="cuda").manual_seed(3),
+                            np.random.default_rng(3))
     return rows
 
 
@@ -728,24 +1033,24 @@ def serve(eng, rng, n_plain, prompt_lo, prompt_hi, new_lo, new_hi):
 
 
 def reset_launches():
-    for _, kern, _, _ in KERNELS:
+    for kern in CUDA_KERNELS.values():
         kern.launches = 0
 
 
 def kernel_launches():
-    return {name: kern.launches for name, kern, _, _ in KERNELS}
+    return counts("cuda")
 
 
-def profile_steps(eng, rng, n_steps: int = 8):
+def profile_steps(eng, rng, n_steps: int = 8, adapters=(None,)):
     """Device busy time and kernel time by name over ``n_steps`` steps of
-    a fresh full batch (8 prompts of 17-300 tokens), traced with
-    torch.profiler after the counted run; None where the trace shows no
-    device activity."""
+    a fresh full batch (8 prompts of 17-300 tokens, their adapters taken
+    in turn from ``adapters``), traced with torch.profiler after the
+    counted run; None where the trace shows no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(8):
         eng.add_request(rng.integers(0, 32000, size=int(
             rng.integers(17, 301))), max_new_tokens=32,
-            request_id=f"prof{i}")
+            request_id=f"prof{i}", adapter=adapters[i % len(adapters)])
     eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -957,6 +1262,265 @@ def quant_cross_check_phase():
         del gpu, cpu, outs
         torch.cuda.empty_cache()
     log("quant_cross_check " + json.dumps(res))
+    return res
+
+
+def mega_engine_phase():
+    """The engine phase's model, engine and traffic with
+    fused_ops="mega": per layer one decode-megakernel launch and one fused
+    MLP launch, no QKV or ragged attention launch."""
+    t0 = time.perf_counter()
+    model = llama("llama2-7b", dtype="bfloat16", seed=0, fused_ops="mega")
+    torch.cuda.synchronize()
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    reset_launches()
+    steps0 = eng.steps
+    t1 = time.perf_counter()
+    reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    steps = eng.steps - steps0
+    layers = model.cfg.num_hidden_layers
+    stats = eng.prefix_stats()
+    assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
+    for rid, (_, n) in reqs.items():
+        assert len(out[rid]) == n, (rid, len(out[rid]), n)
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert stats["hits"] > 0 and stats["cow_copies"] > 0, stats
+    per_step = {"mega_decode": layers, "fused_swiglu_mlp": layers,
+                "fused_rms_rope_qkv": 0, "ragged_paged_attention": 0}
+    got = {k: eng.launches_per_step()[k] for k in per_step}
+    assert got == per_step, (got, per_step)
+    launches = kernel_launches()
+    totals = {k: launches[k] for k in per_step}
+    assert totals == {k: v * steps for k, v in per_step.items()}, totals
+    res = {"fused_ops": "mega", "setup_s": setup_s, "steps": steps,
+           "wall_s": wall, "tokens": eng.tokens_emitted,
+           "tok_s": eng.tokens_emitted / wall,
+           "step_ms": wall / steps * 1e3, "prefix": stats,
+           "launches_per_step": got, "launches": totals}
+    res["profile"] = profile_steps(eng, rng)
+    log("mega_engine " + json.dumps(res))
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def stack_ptrs(pool):
+    return [t.data_ptr() for pack in pool.device_stacks()
+            for ab in pack.values() for t in ab.values()]
+
+
+def serve_lora(eng, rng, vocab, max_new=(16, 32), prompt_hi=120):
+    """Multi-LoRA traffic: two base requests; adapter "ad0" twice, the
+    second sharing the first's 64-token prefix after it finished (prefix
+    hits within an adapter); one prompt X under "ad1" and, after it
+    finished, under "ad2" (no hit across adapters); one more request on
+    each of "ad1" and "ad2".  Returns {id: (prompt, max_new, adapter)},
+    the outputs, and the page hits of the two second-arrivals."""
+    reqs, out = {}, {}
+
+    def add(rid, prompt, adapter):
+        n = int(rng.integers(max_new[0], max_new[1] + 1))
+        reqs[rid] = (prompt, n, adapter)
+        eng.add_request(prompt, max_new_tokens=n, request_id=rid,
+                        adapter=adapter)
+
+    rnd = lambda n: rng.integers(0, vocab, size=n)
+    some = lambda: rnd(int(rng.integers(17, prompt_hi + 1)))
+    prefix, x_prompt = rnd(64), rnd(40)
+    add("b0", some(), None)
+    add("b1", some(), None)
+    add("a0p", np.concatenate([prefix, rnd(20)]), "ad0")
+    add("a1x", x_prompt.copy(), "ad1")
+    add("a1y", some(), "ad1")
+    add("a2y", some(), "ad2")
+    while not (eng._states["a0p"].finished and eng._states["a1x"].finished):
+        eng.step()
+    hits = {}
+    for rid, prompt, adapter in (("a0q", np.concatenate([prefix, rnd(30)]),
+                                  "ad0"), ("a2x", x_prompt.copy(), "ad2")):
+        h0 = eng.prefix_stats()["hits"]
+        add(rid, prompt, adapter)
+        eng._admit_all()
+        hits[rid] = eng.prefix_stats()["hits"] - h0
+    out.update(eng.run())
+    return reqs, out, hits
+
+
+def base_streams(model, reqs, max_batch=8):
+    """The base requests of ``reqs`` (and prompt X) through a LoRA-less
+    engine on ``model`` (on the card): {id: output} and the margins."""
+    eng = Engine(model, max_batch=max_batch, max_seq_len=512,
+                 page_size=16).warmup()
+    eng.margins = {}
+    for rid, (prompt, n, adapter) in reqs.items():
+        if adapter is None or rid == "a1x":
+            eng.add_request(prompt, max_new_tokens=n, request_id=rid)
+    out = eng.run()
+    return out, eng.margins
+
+
+def lora_engine_phase():
+    """llama2-7b in bf16 behind the same engine with lora=LoRAPool(model,
+    max_adapters=4, rank=16) and three random adapters: mixed batches,
+    224 grouped-BGMV launches per step, prefix hits within an adapter and
+    none across adapters, base streams equal to a LoRA-less engine's,
+    then an evict/load churn that leaves the stack tensors in place."""
+    t0 = time.perf_counter()
+    model = llama("llama2-7b", dtype="bfloat16", seed=0, fused_ops="off")
+    torch.cuda.synchronize()
+    pool = LoRAPool(model, max_adapters=4, rank=LORA_RANK)
+    arng = np.random.default_rng(5)
+    for name in ("ad0", "ad1", "ad2"):
+        pool.load(name, random_adapter(model, rank=LORA_RANK, rng=arng,
+                                       scale=LORA_SCALE))
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
+                 lora=pool).warmup()
+    setup_s = time.perf_counter() - t0
+    ptrs = stack_ptrs(pool)
+    layers = model.cfg.num_hidden_layers
+    rng = np.random.default_rng(1)
+    reset_launches()
+    steps0 = eng.steps
+    t1 = time.perf_counter()
+    reqs, out, hits = serve_lora(eng, rng, model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    steps = eng.steps - steps0
+    assert sorted(out) == sorted(reqs) and len(reqs) == 8, sorted(out)
+    for rid, (_, n, _) in reqs.items():
+        assert len(out[rid]) == n, (rid, len(out[rid]), n)
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert hits["a0q"] > 0 and hits["a2x"] == 0, hits
+    per_step = {"grouped_bgmv": 7 * layers, "ragged_paged_attention": layers,
+                "fused_rms_rope_qkv": 0, "fused_swiglu_mlp": 0,
+                "mega_decode": 0}
+    got = {k: eng.launches_per_step()[k] for k in per_step}
+    assert got == per_step, (got, per_step)
+    launches = kernel_launches()
+    totals = {k: launches[k] for k in per_step}
+    assert totals == {k: v * steps for k, v in per_step.items()}, totals
+    # base streams against a LoRA-less engine on the same model and path
+    ref, margins = base_streams(model, reqs)
+    verdicts = {rid: near_tie_equal(ref[rid], out[rid], margins[rid])
+                for rid in ("b0", "b1")}
+    changed = ref["a1x"] != out["a1x"] or ref["a1x"] != out["a2x"]
+    assert changed, "the adapters left prompt X's greedy stream unchanged"
+    # churn: evict an idle adapter, load a fourth into its slot, serve on
+    freed = pool.slot_of("ad2")
+    pool.evict("ad2")
+    slot = pool.load("ad3", random_adapter(model, rank=LORA_RANK, rng=arng,
+                                           scale=LORA_SCALE))
+    assert slot == freed and stack_ptrs(pool) == ptrs
+    for rid, adapter in (("c3", "ad3"), ("c1", "ad1")):
+        eng.add_request(rng.integers(0, model.cfg.vocab_size, size=40),
+                        max_new_tokens=8, request_id=rid, adapter=adapter)
+    churn = eng.run()
+    assert sorted(churn) == ["c1", "c3"] and eng.kv_blocks_used == 0
+    assert stack_ptrs(pool) == ptrs and pool.stats()["live_refs"] == 0
+    res = {"setup_s": setup_s, "steps": steps, "wall_s": wall,
+           "tokens": sum(len(o) for o in out.values()),
+           "tok_s": sum(len(o) for o in out.values()) / wall,
+           "step_ms": wall / steps * 1e3, "prefix": eng.prefix_stats(),
+           "page_hits": hits, "launches_per_step": got, "launches": totals,
+           "base_vs_lora_less": verdicts, "adapter_changed_stream": changed,
+           "lora_stack_bytes": pool.nbytes(), "lora_scale": LORA_SCALE,
+           "pool": pool.stats(), "stack_ptrs_unchanged": True}
+    # the window's batch: six adapted requests over three adapters, two
+    # base
+    res["profile"] = profile_steps(eng, rng,
+                                   adapters=(None, "ad0", "ad1", "ad3"))
+    log("lora_engine " + json.dumps(res))
+    del eng, model, pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def mega_cross_check_phase():
+    """fused_ops="mega", 2 layers at full llama2-7b width in f32, the same
+    weights on both sides: the megakernel on the card against the
+    composition on the CPU, greedy streams equal under the near-tie rule,
+    prefix stats equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32", seed=1,
+                fused_ops="mega")
+    cpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32",
+                device="cpu", seed=1, fused_ops="mega")
+    cpu.load_state_dict(gpu.state_dict())
+    outs = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+        eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                     device=dev).warmup()
+        eng.margins = {}
+        reqs, out = serve(eng, np.random.default_rng(2), 3, 17, 90, 6, 10)
+        assert eng.kv_blocks_used == 0
+        assert eng.launches_per_step()["mega_decode"] == 2
+        outs[tag] = (out, eng.margins, eng.prefix_stats())
+    (ref, margins, rstats), (got, _, gstats) = outs["cpu"], outs["gpu"]
+    verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
+                for rid in ref}
+    assert sorted(got) == sorted(ref) and len(ref) == 6
+    assert rstats == gstats, (rstats, gstats)
+    res = {"requests": len(ref),
+           "equal": sum(v == "equal" for v in verdicts.values()),
+           "exempt": sorted(r for r, v in verdicts.items()
+                            if v == "exempt"),
+           "min_margin": min(min(m) for m in margins.values())}
+    log("mega_cross_check " + json.dumps(res))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def lora_cross_check_phase():
+    """Multi-LoRA, 2 layers at full llama2-7b width in f32, the same
+    weights and adapters on both sides: the grouped-BGMV kernel on the
+    card against the plain version on the CPU, greedy streams equal under
+    the near-tie rule and prefix stats equal; on the card the base
+    requests' streams also equal a LoRA-less engine's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32", seed=1,
+                fused_ops="off")
+    cpu = llama("llama2-7b", num_hidden_layers=2, dtype="float32",
+                device="cpu", seed=1, fused_ops="off")
+    cpu.load_state_dict(gpu.state_dict())
+    adapters = [random_adapter(cpu, rank=LORA_RANK,
+                               rng=np.random.default_rng(6 + i),
+                               scale=LORA_SCALE) for i in range(3)]
+    outs = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+        pool = LoRAPool(model, max_adapters=4, rank=LORA_RANK)
+        for i, w in enumerate(adapters):
+            pool.load(f"ad{i}", w)
+        eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                     device=dev, lora=pool).warmup()
+        eng.margins = {}
+        reqs, out, hits = serve_lora(eng, np.random.default_rng(3), 32000,
+                                     max_new=(6, 10), prompt_hi=90)
+        assert eng.kv_blocks_used == 0
+        assert hits["a0q"] > 0 and hits["a2x"] == 0, hits
+        outs[tag] = (out, eng.margins, eng.prefix_stats(), reqs)
+    (ref, margins, rstats, reqs), (got, _, gstats, _) = outs["cpu"], \
+        outs["gpu"]
+    verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
+                for rid in ref}
+    assert sorted(got) == sorted(ref) and len(ref) == 8
+    assert rstats == gstats, (rstats, gstats)
+    base, bmargins = base_streams(gpu, reqs, max_batch=4)
+    base_verdicts = {rid: near_tie_equal(base[rid], got[rid], bmargins[rid])
+                     for rid in ("b0", "b1")}
+    res = {"requests": len(ref),
+           "equal": sum(v == "equal" for v in verdicts.values()),
+           "exempt": sorted(r for r, v in verdicts.items()
+                            if v == "exempt"),
+           "min_margin": min(min(m) for m in margins.values()),
+           "base_vs_lora_less": base_verdicts}
+    log("lora_cross_check " + json.dumps(res))
+    del gpu, cpu
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1176,8 +1740,12 @@ def main() -> int:
     kernel_rows = kernel_phase()
     engine = engine_phase()
     quant = {kind: quant_engine_phase(kind) for kind in QUANT}
+    mega = mega_engine_phase()
+    lora = lora_engine_phase()
     cross_check_phase()
     quant_cross_check_phase()
+    mega_cross_check_phase()
+    lora_cross_check_phase()
     train = train_phase()
     train_cross_check_phase()
     main_rows = {r["name"]: r for r in kernel_rows
@@ -1185,7 +1753,9 @@ def main() -> int:
                  and "shape" not in r}
     main_rows.update({r["name"]: r for r in kernel_rows
                       if r["geometry"] == "llama2-7b-step"})
-    launches = {**train["launches"], **engine["launches"]}
+    launches = {**train["launches"], **engine["launches"],
+                "mega_decode": mega["launches"]["mega_decode"],
+                "grouped_bgmv": lora["launches"]["grouped_bgmv"]}
     for kind, (name, _, _) in QUANT.items():
         launches[name] = quant[kind]["launches"][name]
     line = {"kernels": [
@@ -1196,7 +1766,7 @@ def main() -> int:
          "bound_ms": main_rows[name]["bound_ms"],
          "bound_by": main_rows[name]["bound_by"],
          "library_ms": main_rows[name]["library_ms"]}
-        for name, _, src, rep in KERNELS]}
+        for name, src, rep in KERNELS]}
     log(f"card: {smi}")
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

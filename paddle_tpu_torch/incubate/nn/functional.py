@@ -1,9 +1,10 @@
 """``paddle_tpu.incubate.nn.functional`` counterpart: the fused entry
 points of the serving path, with the reference's signatures.
 
-``fused_rms_rope_qkv``, ``fused_swiglu_mlp`` and ``ragged_paged_attend``
-launch their hand-written kernels (``ops/cuda``) on CUDA tensors and run
-the plain versions on CPU tensors.  The ``_..._ref``/``_paged_*`` names
+``fused_rms_rope_qkv``, ``fused_swiglu_mlp``, ``ragged_paged_attend``,
+``mega_decode_layer`` and ``lora_bgmv`` launch their hand-written kernels
+(``ops/cuda``) on CUDA tensors and run the plain versions on CPU
+tensors.  The ``_..._ref``/``_paged_*`` names
 are the plain versions under the reference's names.  ``_paged_span_write``
 and ``paged_copy_blocks`` are plain indexed tensor code here as in the
 reference, where they are not Pallas kernels either.
@@ -41,13 +42,18 @@ import torch
 
 from ...ops.cuda import fused_mlp as _fm
 from ...ops.cuda import fused_norm_qkv as _fq
+from ...ops.cuda import lora_matmul as _lm
+from ...ops.cuda import mega_decode as _md
 from ...ops.cuda import ragged_attention as _ra
+from ...ops.cuda._common import dot_f32
 
-__all__ = ["fused_rms_rope_qkv", "fused_swiglu_mlp", "paged_copy_blocks",
+__all__ = ["fused_rms_rope_qkv", "fused_swiglu_mlp", "lora_bgmv",
+           "lora_delta", "mega_decode_layer", "paged_copy_blocks",
            "ragged_paged_attend"]
 
 _fused_swiglu_mlp_ref = _fm.plain
 _fused_rms_rope_qkv_ref = _fq.plain
+_lora_bgmv_ref = _lm.plain
 _paged_gather_dense = _ra.paged_gather_dense
 _ragged_attend_dense = _ra.ragged_attend_dense
 
@@ -131,29 +137,16 @@ def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
 
 
 def _paged_span_write(cache, k, v, block_tables, span_starts, span_lens):
-    """Write a token span ``k``/``v`` (B, C, H_kv, D) into the paged pools
-    at positions ``[span_starts, span_starts + span_lens)`` of each slot.
-    Rows ``>= span_lens`` (chunk padding, idle slots) are masked out
-    before any index is formed, so neither they nor a sentinel table
-    entry ever touch the pools.  In place; returns ``cache``.  (The
-    ``nonzero()`` syncs the host with the card once per call.)"""
+    """Write a token span ``k``/``v`` (B, C, H_kv, D) into the layer's
+    pool pair ``cache`` at positions ``[span_starts, span_starts +
+    span_lens)`` of each slot (``ops/cuda/ragged_attention.span_write``:
+    dead rows and sentinel table entries never touch the pools).  In
+    place; returns ``cache``."""
     if len(cache) != 2:
         raise NotImplementedError(
             "int8 paged pools are not ported yet (ROADMAP.md)")
-    kc, vc = cache
-    s = k.shape[1]
-    bs = kc.shape[1]
-    mb = block_tables.shape[1]
-    ar = torch.arange(s, device=k.device)
-    pos = span_starts.long()[:, None] + ar[None, :]              # (B, C)
-    live = ar[None, :] < span_lens.long()[:, None]
-    bi, ci = live.nonzero(as_tuple=True)
-    p = pos[bi, ci]
-    blk = block_tables.long()[bi, torch.clamp(p // bs, max=mb - 1)]
-    off = p % bs
-    kc[blk, off] = k[bi, ci].to(kc.dtype)
-    vc[blk, off] = v[bi, ci].to(vc.dtype)
-    return cache
+    return _ra.span_write(cache[0], cache[1], k, v, block_tables,
+                          span_starts, span_lens)
 
 
 def ragged_paged_attend(cache, q, new_k, new_v, block_tables, span_starts,
@@ -171,6 +164,91 @@ def ragged_paged_attend(cache, q, new_k, new_v, block_tables, span_starts,
     out = _ra.ragged_paged_attention(q, kc, vc, block_tables, span_starts,
                                      span_lens, scale=scale)
     return out, cache
+
+
+def _mega_decode_layer_ref(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin,
+                           cache, block_tables, span_starts, span_lens,
+                           head_dim, eps, scale):
+    """The decode megakernel's numerical contract: the fused entry points
+    chained -- :func:`fused_rms_rope_qkv` -> :func:`ragged_paged_attend`
+    (span write included) -> the O projection accumulated in f32 and
+    rounded to x.dtype -> the residual add.  Returns ``(out, cache)``,
+    the pools updated in place."""
+    b, c, h = x.shape
+    q, k, v = fused_rms_rope_qkv(
+        x.reshape(b * c, h), norm_weight, w_q, w_k, w_v,
+        cos.reshape(b * c, head_dim), sin.reshape(b * c, head_dim),
+        head_dim, eps)
+    nh = q.shape[-1] // head_dim
+    nkh = k.shape[-1] // head_dim
+    attn, cache = ragged_paged_attend(
+        cache, q.reshape(b, c, nh, head_dim),
+        k.reshape(b, c, nkh, head_dim), v.reshape(b, c, nkh, head_dim),
+        block_tables, span_starts, span_lens, scale=scale)
+    y = dot_f32(attn.reshape(b * c, nh * head_dim), w_o.to(x.dtype))
+    return x + y.to(x.dtype).reshape(b, c, h), cache
+
+
+def mega_decode_layer(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, cache,
+                      block_tables, span_starts, span_lens, head_dim: int,
+                      eps: float = 1e-5, scale: Optional[float] = None):
+    """One decoder layer's whole ragged attention block -- rms_norm ->
+    q/k/v projections -> rotate-half rope -> ragged paged attention (span
+    write included) -> O projection -> residual -- as one entry point.
+
+    x: (B, C, H) residual-stream span batch (un-normed); norm_weight
+    (H,); w_q (H, Nq); w_k/w_v (H, Nk); w_o (Nq, H); cos/sin (B, C,
+    head_dim); ``cache``/``block_tables``/``span_starts``/``span_lens`` as
+    :func:`ragged_paged_attend`.  Returns ``(x + o_proj(attend), cache)``,
+    the pools updated in place.
+
+    ``ops/cuda/mega_decode`` computes the output and the span k/v -- one
+    launch of the decode megakernel on CUDA tensors (a geometry it does
+    not take raises: nothing falls back), its plain version, the
+    composition :func:`_mega_decode_layer_ref` on copies of the pools, on
+    CPU tensors -- then the one shared span write puts the span k/v into
+    the pools, exactly as the composition writes them.  Forward only
+    (serving): the outputs carry no gradient."""
+    if len(cache) != 2:
+        raise NotImplementedError(
+            "mega_decode_layer: int8 paged pools are not ported yet "
+            "(ROADMAP.md)")
+    dt = x.dtype
+    out, k_new, v_new = _md.mega_decode(
+        x, norm_weight.to(dt), w_q.to(dt), w_k.to(dt), w_v.to(dt),
+        w_o.to(dt), cos, sin, cache[0], cache[1], block_tables, span_starts,
+        span_lens, head_dim, eps, scale)
+    b, c = k_new.shape[:2]
+    nkh = k_new.shape[-1] // head_dim
+    cache = _paged_span_write(cache, k_new.reshape(b, c, nkh, head_dim),
+                              v_new.reshape(b, c, nkh, head_dim),
+                              block_tables, span_starts, span_lens)
+    return out, cache
+
+
+def lora_bgmv(x, a, b, idx):
+    """Grouped batched-gather matrix-vector product -- the multi-LoRA
+    serving delta ``x[s] @ A[idx[s]] @ B[idx[s]]`` per batch slot.  ``x``
+    (B, C, d_in); ``a``/``b`` the stacked adapter pools (N, d_in, r) /
+    (N, r, d_out) (``serving.LoRAPool.device_stacks``); ``idx`` (B,)
+    int32.  Index 0 is the reserved exact no-op.  The grouped-BGMV kernel
+    on CUDA tensors, :func:`_lora_bgmv_ref` on CPU tensors.  Serving
+    only: no gradient."""
+    return _lm.grouped_bgmv(x, a, b, idx)
+
+
+def lora_delta(lora, inp, key):
+    """The adapter delta of projection ``key`` under the threaded
+    ``(layer pack, adapter ids)`` pair: :func:`lora_bgmv` on its stacks,
+    or ``None`` when no pack is threaded or the pool does not target
+    ``key`` (the caller then skips the add)."""
+    if lora is None:
+        return None
+    lpack, laids = lora
+    e = lpack.get(key)
+    if e is None:
+        return None
+    return lora_bgmv(inp, e["a"], e["b"], laids)
 
 
 def paged_copy_blocks(cache, src_blocks, dst_blocks):

@@ -16,6 +16,14 @@ an f32 value -- and are then cast to the parameter's dtype.
 the same way: the parameters, and the optimizer's ``step``, ``master``,
 ``moment1`` and ``moment2``, copied in place into a port state made by
 ``TrainStep.init_state``, so both sides start a step from the same state.
+
+Adapters cross as numpy: ``serving.LoRAPool.load`` takes the per-layer
+``{proj: (A, B)}`` numpy packs that either package's ``random_adapter``
+returns, so one adapter loads into a JAX pool and a port pool alike.
+:func:`lora_pool_from_numpy` copies a whole JAX pool -- its f32 host
+mirror (alpha/r already folded into B) and its name -> slot registry --
+into a port pool of the same geometry, so both engines serve identical
+stacks.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_numpy", "train_state_from_numpy"]
+__all__ = ["lora_pool_from_numpy", "params_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -97,3 +106,13 @@ def train_state_from_numpy(state: Dict, arrays: Dict) -> Dict:
         if "step" in arrays:
             state["step"] = int(np.asarray(arrays["step"]))
     return state
+
+
+def lora_pool_from_numpy(pool, host, adapters: Dict[str, int]):
+    """Copy a JAX ``LoRAPool``'s host mirror (``jpool._host``: per layer
+    ``{proj: {"a": (N, d_in, r), "b": (N, r, d_out)}}`` f32 numpy) and
+    registry (``jpool.adapters()``) into the port ``pool`` in place: the
+    host mirror, the device stacks (slot by slot, same tensors) and the
+    slots; refcounts start empty.  Returns ``pool``."""
+    pool._restore(host, adapters)
+    return pool

@@ -16,12 +16,20 @@ Ported:
   projection is weight-only quantized, as ``_use_fused`` decides): the
   input norm, ``q_proj``/``k_proj``/``v_proj`` and
   ``apply_rotary_pos_emb``; ``down_proj(swiglu(gate_proj(x),
-  up_proj(x)))``.
+  up_proj(x)))``;
+- ``fused_ops="mega"`` (``_use_mega``): on the paged ragged step the
+  decoder layer's whole attention block is ``mega_decode_layer`` (the
+  decode megakernel on the card), the MLP after it the fused SwiGLU;
+- multi-LoRA: the ``lora`` pair ``(per-layer stack packs, per-slot
+  adapter ids)`` threads through the cached forward; each layer then
+  takes the unfused branch and adds ``lora_delta`` to q/k/v (before
+  RoPE), o, gate, up and down.
 The other paged branches, ``generate()``, context/model parallelism, the
-chunked loss, ``fuse_qkv_mlp`` and ``fused_ops="mega"`` raise
-``NotImplementedError`` (ROADMAP.md lists them as still to port).
-``"auto"`` resolves to ``"on"``: in the port every fused entry point
-serves (the kernel on the card, the plain version on the CPU).
+chunked loss and ``fuse_qkv_mlp`` raise ``NotImplementedError``
+(ROADMAP.md lists them as still to port).  ``"auto"`` resolves to
+``"on"``: in the port every fused entry point serves (the kernel on the
+card, the plain version on the CPU); the megakernel is taken only under
+``"mega"``.
 Parameters are trainable; serving runs under ``torch.no_grad()``.
 
 ``named_parameters()`` gives the reference's dotted names
@@ -185,7 +193,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = init.linear(cfg.num_attention_heads * hd, h)
 
     def forward(self, x, cos, sin, norm_weight, attn_mask=None, cache=None,
-                seq_lens=None, block_tables=None, span_starts=None):
+                seq_lens=None, block_tables=None, span_starts=None,
+                lora=None):
         """With ``norm_weight``, ``x`` is the UN-normed residual stream and
         the input layernorm folds into the fused norm->qkv->rope kernel;
         without it (the unfused branch) ``x`` is already normed and goes
@@ -194,8 +203,11 @@ class LlamaAttention(nn.Module):
         a cache: causal attention over the sequence, returns
         ``o_proj(attn)``.  With the paged pools (``cache``,
         ``block_tables``, ``span_starts``): the ragged serving branch,
-        returns ``(o_proj(attn), cache)``."""
+        returns ``(o_proj(attn), cache)``.  ``lora`` (unfused branch only)
+        adds each slot's adapter delta to the q/k/v projections before
+        RoPE and to the O projection."""
         from ..incubate.nn.functional import (fused_rms_rope_qkv,
+                                              lora_delta,
                                               ragged_paged_attend)
         cfg = self.cfg
         b, s = x.shape[:2]
@@ -210,6 +222,14 @@ class LlamaAttention(nn.Module):
                 cfg.rms_norm_eps)
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+            if lora is not None:
+                # slot 0 rows add an exact 0.0: base requests unchanged
+                dq = lora_delta(lora, x, "self_attn.q_proj")
+                dk = lora_delta(lora, x, "self_attn.k_proj")
+                dv = lora_delta(lora, x, "self_attn.v_proj")
+                q = q if dq is None else q + dq
+                k = k if dk is None else k + dk
+                v = v if dv is None else v + dv
         q = q.reshape(b, s, cfg.num_attention_heads, hd)
         k = k.reshape(b, s, cfg.num_key_value_heads, hd)
         v = v.reshape(b, s, cfg.num_key_value_heads, hd)
@@ -223,7 +243,9 @@ class LlamaAttention(nn.Module):
         out, cache = ragged_paged_attend(cache, q, k, v, block_tables,
                                          span_starts, seq_lens)
         out = out.reshape(b, s, cfg.num_attention_heads * hd)
-        return self.o_proj(out), cache
+        y = self.o_proj(out)
+        d = lora_delta(lora, out, "self_attn.o_proj")
+        return (y if d is None else y + d), cache
 
 
 class LlamaMLP(nn.Module):
@@ -235,8 +257,21 @@ class LlamaMLP(nn.Module):
         self.up_proj = init.linear(h, i)
         self.down_proj = init.linear(i, h)
 
-    def forward(self, x):
-        from ..incubate.nn.functional import fused_swiglu_mlp
+    def forward(self, x, lora=None):
+        from ..incubate.nn.functional import fused_swiglu_mlp, lora_delta
+        if lora is not None:
+            # the gate/up deltas need x and the down delta the swiglu
+            # intermediate, which the one-pass fused kernel never
+            # materializes: the LoRA path is the unfused composition
+            g, u = self.gate_proj(x), self.up_proj(x)
+            dg = lora_delta(lora, x, "mlp.gate_proj")
+            du = lora_delta(lora, x, "mlp.up_proj")
+            g = g if dg is None else g + dg
+            u = u if du is None else u + du
+            h = F.swiglu(g, u)
+            y = self.down_proj(h)
+            dd = lora_delta(lora, h, "mlp.down_proj")
+            return y if dd is None else y + dd
         if not _use_fused(self.cfg, (self.gate_proj, self.up_proj,
                                      self.down_proj)):
             return self.down_proj(F.swiglu(self.gate_proj(x),
@@ -269,20 +304,51 @@ class LlamaDecoderLayer(nn.Module):
             return x, self.input_layernorm.weight
         return self.input_layernorm(x), None
 
+    def _use_mega(self) -> bool:
+        """Whether the paged step's attention block is the one
+        ``mega_decode_layer`` entry: only under ``fused_ops="mega"``, and
+        never for quantized projections (``_use_fused``'s veto).  On the
+        card the kernel then serves or raises; the LoRA path never
+        reaches here (the caller pins the unfused branch)."""
+        attn = self.self_attn
+        return self.cfg.fused_ops == "mega" and _use_fused(
+            self.cfg, (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj))
+
     def forward(self, x, cos, sin, attn_mask=None, cache=None,
-                seq_lens=None, block_tables=None, span_starts=None):
+                seq_lens=None, block_tables=None, span_starts=None,
+                lora=None):
         """Without a cache returns ``x``; with the paged pools returns
         ``(x, cache)``."""
-        attn_in, nw = self._attn_input(x)
+        if cache is not None and lora is None and self._use_mega():
+            from ..incubate.nn.functional import mega_decode_layer
+            cfg = self.cfg
+            b, s = x.shape[:2]
+            hd = cfg.head_dim
+            c2, s2 = (cos, sin) if cos.ndim == 3 else \
+                (t[None].expand(b, s, hd).contiguous() for t in (cos, sin))
+            attn = self.self_attn
+            x, cache = mega_decode_layer(
+                x, self.input_layernorm.weight, attn.q_proj.weight,
+                attn.k_proj.weight, attn.v_proj.weight, attn.o_proj.weight,
+                c2, s2, cache, block_tables, span_starts, seq_lens, hd,
+                cfg.rms_norm_eps)
+            x = x + self.mlp(self.post_attention_layernorm(x))
+            return x, cache
+        if lora is None:
+            attn_in, nw = self._attn_input(x)
+        else:
+            # LoRA deltas land before RoPE, which the fused
+            # norm->qkv->rope pass cannot expose: the unfused branch
+            attn_in, nw = self.input_layernorm(x), None
         if cache is None:
             attn = self.self_attn(attn_in, cos, sin, nw, attn_mask)
         else:
             attn, cache = self.self_attn(attn_in, cos, sin, nw, cache=cache,
                                          seq_lens=seq_lens,
                                          block_tables=block_tables,
-                                         span_starts=span_starts)
+                                         span_starts=span_starts, lora=lora)
         x = x + attn
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        x = x + self.mlp(self.post_attention_layernorm(x), lora=lora)
         return x if cache is None else (x, cache)
 
 
@@ -303,7 +369,7 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 caches=None, seq_lens=None, block_tables=None,
-                span_starts=None):
+                span_starts=None, lora=None):
         if caches is None:
             cfg = self.cfg
             x = self.embed_tokens(input_ids)
@@ -319,13 +385,15 @@ class LlamaModel(nn.Module):
                 "cached forward supports causal spans only — "
                 "attn_mask/position_ids would be silently ignored")
         return self._forward_cached(input_ids, caches, seq_lens,
-                                    block_tables, span_starts)
+                                    block_tables, span_starts, lora)
 
     def _forward_cached(self, input_ids, caches, seq_lens,
-                        block_tables=None, span_starts=None):
+                        block_tables=None, span_starts=None, lora=None):
         """The unified RAGGED serving step: per-slot spans (chunked
         prefill or decode tokens) at positions ``[start, start+len)``
         over the paged pools, ``seq_lens`` carrying the span lengths.
+        ``lora`` is the multi-LoRA pair (per-layer stacked adapter packs,
+        per-slot adapter ids): each decoder layer gets its own pack.
         Returns ``(hidden, caches)``."""
         if block_tables is None or span_starts is None:
             raise NotImplementedError(
@@ -338,6 +406,10 @@ class LlamaModel(nn.Module):
                 f"cache list has {len(caches)} entries for "
                 f"{len(self.layers)} decoder layers — was it built by a "
                 "different config?")
+        if lora is not None and len(lora[0]) != len(self.layers):
+            raise ValueError(
+                f"LoRA packs for {len(lora[0])} layers, the model has "
+                f"{len(self.layers)}")
         x = self.embed_tokens(input_ids)
         s = input_ids.shape[1]
         pos = span_starts.long()[:, None] + \
@@ -345,10 +417,12 @@ class LlamaModel(nn.Module):
         cos, sin = F.rope_cos_sin(s, cfg.head_dim, base=cfg.rope_theta,
                                   dtype=x.dtype, position_ids=pos)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
             x, cache = layer(x, cos, sin, cache=cache, seq_lens=seq_lens,
                              block_tables=block_tables,
-                             span_starts=span_starts)
+                             span_starts=span_starts,
+                             lora=None if lora is None
+                             else (lora[0][i], lora[1]))
             new_caches.append(cache)
         return self.norm(x), new_caches
 
@@ -360,9 +434,7 @@ class LlamaForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         mode = getattr(cfg, "fused_ops", "auto")
-        if mode == "mega":
-            raise NotImplementedError(f"fused_ops={mode!r}" + _TODO)
-        if mode not in ("on", "auto", "off"):
+        if mode not in ("on", "auto", "off", "mega"):
             raise ValueError(f"fused_ops={mode!r}: expected on|off|auto|mega")
         if cfg.fuse_qkv_mlp:
             raise NotImplementedError("fuse_qkv_mlp" + _TODO)

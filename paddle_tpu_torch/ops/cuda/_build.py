@@ -37,7 +37,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fused_norm_qkv", "fused_mlp", "ragged_attention",
-           "flash_attention", "fused_adamw", "int8_matmul", "int4_matmul")
+           "flash_attention", "fused_adamw", "int8_matmul", "int4_matmul",
+           "mega_decode", "lora_matmul")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -119,13 +120,16 @@ class Kernel:
 
     ``launches`` grows by one each time :meth:`launch` ran the kernel
     without a launch error -- and nowhere else, so a run can show that
-    its path went through the kernel."""
+    its path went through the kernel.  ``plain_calls`` counts the calls
+    whose CPU tensors ran the plain version instead (``_common.on_cuda``
+    adds them), so a CPU run can count the same path."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.plain_calls = 0
         self._lib = None
         self._helpers = {}
 

@@ -14,15 +14,18 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
+def on_cuda(op: str, *tensors: torch.Tensor, kernel=None) -> bool:
     """True when ``op`` must launch its kernel, False when its inputs lie
-    on the CPU (the plain version runs).  Any other device, or a mix of
-    devices, raises: a CUDA tensor gets the kernel or an error."""
+    on the CPU (the plain version runs; ``kernel.plain_calls`` counts it).
+    Any other device, or a mix of devices, raises: a CUDA tensor gets the
+    kernel or an error."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{op}: inputs on several devices {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
+        if kernel is not None:
+            kernel.plain_calls += 1
         return False
     if dev.type != "cuda":
         raise ValueError(f"{op}: no kernel for device {dev} (cuda or cpu)")

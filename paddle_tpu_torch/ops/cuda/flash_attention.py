@@ -137,7 +137,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
     run :func:`plain`."""
     op = "flash_attention"
     _reject_causal_overhang(q, k, causal)
-    if not on_cuda(op, q, k, v):
+    if not on_cuda(op, q, k, v, kernel=FWD):
         return plain(q, k, v, causal, scale)
     _check(op, q, k, v)
     b, sq, h, d = q.shape
@@ -157,7 +157,7 @@ def flash_bwd(q, k, v, out, lse, dout, scale: float, causal: bool,
     PyTorch reduction, as the reference leaves it to XLA."""
     op = "flash_attention_bwd"
     _reject_causal_overhang(q, k, causal)
-    if not on_cuda(op, q, k, v, out, lse, dout):
+    if not on_cuda(op, q, k, v, out, lse, dout, kernel=BWD):
         return plain_bwd(q, k, v, out, lse, dout, causal, scale, dlse)
     dout = dout.contiguous()
     _check(op, q, k, v)

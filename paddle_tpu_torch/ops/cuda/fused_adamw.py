@@ -96,7 +96,7 @@ def fused_adamw_update(params: Sequence[torch.Tensor],
     op = "fused_adamw"
     tensors = [*params, *grads, *moment1, *moment2,
                *(t for t in lows if t is not None)]
-    if not on_cuda(op, *tensors):
+    if not on_cuda(op, *tensors, kernel=KERNEL):
         for p, g, m, v, wd, low in zip(params, grads, moment1, moment2, wds,
                                        lows):
             plain(p, g, m, v, lr, c1, c2, beta1=beta1, beta2=beta2, eps=eps,

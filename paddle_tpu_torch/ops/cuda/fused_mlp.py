@@ -39,7 +39,7 @@ def fused_swiglu_mlp(x, w_gate, w_up, w_down):
     """x (T, H); w_gate/w_up (H, I); w_down (I, H) -> (T, H) in x.dtype.
     CUDA tensors launch the kernel, CPU tensors run :func:`plain`."""
     op = "fused_swiglu_mlp"
-    if not on_cuda(op, x, w_gate, w_up, w_down):
+    if not on_cuda(op, x, w_gate, w_up, w_down, kernel=KERNEL):
         return plain(x, w_gate, w_up, w_down)
     t, h = x.shape
     inter = w_gate.shape[1]

@@ -57,7 +57,8 @@ def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
     x.dtype, RoPE applied to q and k.  CUDA tensors launch the kernel,
     CPU tensors run :func:`plain`."""
     op = "fused_rms_rope_qkv"
-    if not on_cuda(op, x, norm_weight, w_q, w_k, w_v, cos, sin):
+    if not on_cuda(op, x, norm_weight, w_q, w_k, w_v, cos, sin,
+                   kernel=KERNEL):
         return plain(x, norm_weight, w_q, w_k, w_v, cos, sin, head_dim, eps)
     t, h = x.shape
     nq, nk = w_q.shape[1], w_k.shape[1]

@@ -59,6 +59,6 @@ def int4_matmul(x, packed, scale):
         raise ValueError(f"x K={k} vs packed rows {k2} (need K = 2*rows)")
     if tuple(scale.shape) != (n,):
         raise ValueError(f"scale {tuple(scale.shape)} != ({n},)")
-    if not on_cuda("int4_matmul", x, packed, scale):
+    if not on_cuda("int4_matmul", x, packed, scale, kernel=KERNEL):
         return plain(x, packed, scale)
     return launch(KERNEL, "int4_matmul", x, packed, scale, k, n)

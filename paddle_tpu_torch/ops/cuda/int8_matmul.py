@@ -71,6 +71,6 @@ def int8_matmul(x, w, scale):
         raise ValueError(f"x K={k} vs weight rows {k2}")
     if tuple(scale.shape) != (n,):
         raise ValueError(f"scale {tuple(scale.shape)} != ({n},)")
-    if not on_cuda("int8_matmul", x, w, scale):
+    if not on_cuda("int8_matmul", x, w, scale, kernel=KERNEL):
         return plain(x, w, scale)
     return launch(KERNEL, "int8_matmul", x, w, scale, k, n)

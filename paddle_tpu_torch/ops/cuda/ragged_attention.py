@@ -28,13 +28,35 @@ from ._build import Kernel, dtype_code, stream_of
 from ._common import check, check_dense, on_cuda
 
 __all__ = ["KERNEL", "paged_gather_dense", "plain", "ragged_attend_dense",
-           "ragged_paged_attention"]
+           "ragged_paged_attention", "span_write"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("ragged_attention", "pt_ragged_paged_attention",
                 [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P])
 # Hopper's shared memory a block may use (H100: 232,448 bytes)
 _SMEM_LIMIT = 232448
+
+
+def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens):
+    """Write a token span ``k``/``v`` (B, C, H_kv, D) into the paged pools
+    at positions ``[span_starts, span_starts + span_lens)`` of each slot.
+    Rows ``>= span_lens`` (chunk padding, idle slots) are masked out
+    before any index is formed, so neither they nor a sentinel table
+    entry ever touch the pools.  In place; returns the pools.  (The
+    ``nonzero()`` syncs the host with the card once per call.)"""
+    s = k.shape[1]
+    bs = k_pool.shape[1]
+    mb = block_tables.shape[1]
+    ar = torch.arange(s, device=k.device)
+    pos = span_starts.long()[:, None] + ar[None, :]              # (B, C)
+    live = ar[None, :] < span_lens.long()[:, None]
+    bi, ci = live.nonzero(as_tuple=True)
+    p = pos[bi, ci]
+    blk = block_tables.long()[bi, torch.clamp(p // bs, max=mb - 1)]
+    off = p % bs
+    k_pool[blk, off] = k[bi, ci].to(k_pool.dtype)
+    v_pool[blk, off] = v[bi, ci].to(v_pool.dtype)
+    return k_pool, v_pool
 
 
 def paged_gather_dense(k_cache, v_cache, block_tables, k_scale=None,
@@ -87,7 +109,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts, lens,
     """q (B, C, H, D) spans over paged KV pools -> (B, C, H, D).  CUDA
     tensors launch the kernel, CPU tensors run :func:`plain`."""
     op = "ragged_paged_attention"
-    if not on_cuda(op, q, k_pool, v_pool, block_tables, starts, lens):
+    if not on_cuda(op, q, k_pool, v_pool, block_tables, starts, lens,
+                   kernel=KERNEL):
         return plain(q, k_pool, v_pool, block_tables, starts, lens, scale)
     b, c, h, d = q.shape
     nb, page, h_kv, d2 = k_pool.shape

@@ -25,13 +25,17 @@ Step anatomy (one :meth:`step` call):
    everything else returns to the free list.
 
 On the card each decoder layer of the step launches the three
-hand-written kernels (``ops/cuda``); with ``weight_quant`` the
-projections and the LM head launch the int8/int4 matmul kernel instead
-of the fused QKV/MLP kernels.  On the CPU (``device="cpu"``) the same
-step runs their plain versions.  The step's shapes never depend on
-occupancy, as in the reference.  Not ported yet (ROADMAP.md): speculative
-decoding, LoRA, meshes, disaggregated roles, preemption/swap, telemetry
-and fault sites.
+hand-written kernels (``ops/cuda``); under ``fused_ops="mega"`` the
+decode megakernel and the fused MLP kernel instead; with ``weight_quant``
+the projections and the LM head launch the int8/int4 matmul kernel
+instead of the fused QKV/MLP kernels; with ``lora`` (multi-LoRA) the
+layers take the unfused branch and each projection adds the grouped-BGMV
+delta of its slot's adapter.  On the CPU (``device="cpu"``) the same step
+runs their plain versions.  :meth:`launches_per_step` counts the kernel
+launches (on the CPU the plain calls) of the last step.  The step's
+shapes never depend on occupancy, as in the reference.  Not ported yet
+(ROADMAP.md): speculative decoding, meshes, disaggregated roles,
+preemption/swap, int8 KV pools, telemetry and fault sites.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..ops import cuda as _kernels
 from .block_allocator import PagedKVCache, PrefixCache
-from .errors import AdmissionError, BudgetUnsatisfiable
+from .errors import AdmissionError, BudgetUnsatisfiable, UnknownAdapter
 from .scheduler import Request, RequestState, Scheduler
 
 __all__ = ["Engine", "TokenEvent"]
@@ -124,6 +129,12 @@ class Engine:
     (a rejected construction leaves the caller's model untouched), so
     every projection and the LM head stream int8 or packed int4.
 
+    ``lora``: a :class:`serving.LoRAPool` built for ``model`` makes the
+    engine multi-LoRA: each request may name a resident adapter at
+    ``add_request(adapter=...)``, and a mixed batch of adapters and base
+    requests shares the one step (it does not compose with
+    ``weight_quant``).
+
     ``margins``: set it to a dict to record, per request id, the top-2
     logit margin of every emitted token (the near-tie rule of the
     token-identity checks); None (the default) records nothing.
@@ -136,7 +147,8 @@ class Engine:
                  prefill_token_budget: Optional[int] = None,
                  enable_prefix_caching: bool = True, seed: int = 0,
                  keep_finished: int = 1024,
-                 weight_quant: Optional[str] = None, device=None):
+                 weight_quant: Optional[str] = None, lora=None,
+                 device=None):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
@@ -166,6 +178,14 @@ class Engine:
             raise ValueError(
                 f"max_seq_len={max_seq_len} exceeds the model's "
                 f"max_position_embeddings={max_pos}")
+        if weight_quant is not None and lora is not None:
+            # the stacked deltas target the float 2-D projection weights;
+            # quantized layers keep int codes and separate scales
+            raise ValueError(
+                "Engine(lora=...) does not compose with weight_quant "
+                "yet — serve LoRA adapters on the float decode path")
+        if lora is not None:
+            lora.validate(model)
         if weight_quant is not None:
             from ..nn.quant import quantize_linears
             algo = {"int8": "weight_only_int8",
@@ -210,6 +230,8 @@ class Engine:
         self.tokens_emitted = 0
         self.steps = 0               # non-empty steps dispatched
         self.margins: Optional[Dict[str, List[float]]] = None
+        self.lora = lora
+        self._last_launches: Optional[Dict[str, int]] = None
 
     # -- the device step ---------------------------------------------------
 
@@ -217,14 +239,17 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     @torch.no_grad()
-    def _step_fn(self, tokens, tables, starts, lens):
+    def _step_fn(self, tokens, tables, starts, lens, adapters):
         """The ONE serving step: every slot's span writes its KV and
         attends in a single ragged pass; the last REAL span position's
-        hidden state of each slot goes through the LM head.  Returns the
-        (B, V) logits."""
+        hidden state of each slot goes through the LM head.  ``adapters``
+        (B,) int32 are the slots' LoRA stack indices (0: base).  Returns
+        the (B, V) logits."""
+        lora = None if self.lora is None else \
+            (self.lora.device_stacks(), adapters)
         hidden, caches = self.model.model(
             tokens, caches=self.kv.caches, seq_lens=lens,
-            block_tables=tables, span_starts=starts)
+            block_tables=tables, span_starts=starts, lora=lora)
         self.kv.caches = caches
         idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
         h_last = hidden[torch.arange(hidden.shape[0],
@@ -249,7 +274,7 @@ class Engine:
         zeros_i = np.zeros((b,), np.int32)
         self._step_fn(self._tensor(np.zeros((b, c), np.int32)),
                       self._tensor(oob), self._tensor(zeros_i),
-                      self._tensor(zeros_i))
+                      self._tensor(zeros_i), self._tensor(zeros_i))
         pad = self._tensor(np.full((b,), self.kv.oob_block, np.int32))
         self._cow_fn(pad, pad)
         if self.device.type == "cuda":
@@ -261,15 +286,38 @@ class Engine:
     def add_request(self, prompt_ids, max_new_tokens: int = 16,
                     temperature: float = 0.0,
                     eos_token_id: Optional[int] = None,
-                    request_id: Optional[str] = None) -> str:
+                    request_id: Optional[str] = None,
+                    adapter: Optional[str] = None) -> str:
         """Queue one request; returns its id.  It joins the running batch
         at the next ``step()`` with a free slot and enough free blocks for
         its budget (prompt + max_new_tokens, minus any prefix-cache hit).
-        Rejections are typed (``serving.errors``)."""
+        ``adapter`` names a LoRA adapter resident in this engine's pool;
+        the request then decodes through ``W + A_k B_k``.  Rejections are
+        typed (``serving.errors``): :class:`UnknownAdapter` for an
+        adapter the pool has not loaded (or an engine without a pool)."""
         req = Request(prompt_ids=prompt_ids,
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature),
-                      eos_token_id=eos_token_id, request_id=request_id)
+                      eos_token_id=eos_token_id, request_id=request_id,
+                      adapter=adapter)
+        if adapter is not None:
+            if self.lora is None:
+                raise UnknownAdapter(
+                    f"request names adapter {adapter!r} but this engine "
+                    "has no LoRA pool (Engine(lora=serving.LoRAPool(...)))")
+            req.adapter_slot = self.lora.slot_of(adapter)
+            # pinned from the moment the slot resolves, released on any
+            # rejection below
+            self.lora.acquire(adapter, req.request_id)
+        try:
+            self._admission_checks(req)
+        except Exception:
+            if adapter is not None:
+                self.lora.release(adapter, req.request_id)
+            raise
+        return req.request_id
+
+    def _admission_checks(self, req: Request) -> None:
         if req.request_id in self._states:
             raise AdmissionError(
                 f"request_id {req.request_id!r} is already in use by a "
@@ -288,7 +336,6 @@ class Engine:
                 f"{self.kv.num_blocks} — raise num_blocks or lower the "
                 "budget")
         self._states[req.request_id] = self.scheduler.submit(req)
-        return req.request_id
 
     def output_ids(self, request_id: str) -> List[int]:
         return list(self._states[request_id].output_ids)
@@ -309,6 +356,23 @@ class Engine:
                   "registered_pages": 0, "evictions": 0}
         s["cow_copies"] = self._cow_copies
         return s
+
+    def lora_stats(self) -> Dict[str, float]:
+        """Multi-LoRA pool counters (active_adapters/max_adapters/rank/
+        loads/evictions/live_refs) -- zeros when no pool is attached."""
+        if self.lora is None:
+            return {"active_adapters": 0, "max_adapters": 0, "rank": 0,
+                    "loads": 0, "evictions": 0, "live_refs": 0}
+        return self.lora.stats()
+
+    def launches_per_step(self) -> Optional[Dict[str, int]]:
+        """Kernel launches of the last non-empty step, by kernel
+        (``ops.cuda.KERNELS``): the ``KERNEL.launches`` deltas on the card,
+        the plain-version calls on the CPU -- the port's counterpart of
+        the reference's ``dispatches_per_step``.  None before the first
+        step."""
+        return None if self._last_launches is None \
+            else dict(self._last_launches)
 
     # -- the loop ----------------------------------------------------------
 
@@ -367,6 +431,10 @@ class Engine:
         done_len = len(st.output_ids) >= req.max_new_tokens
         if done_eos or done_len:
             self.scheduler.finish(st, "eos" if done_eos else "length")
+            if self.lora is not None and req.adapter is not None:
+                # the adapter's slot becomes evictable once its last
+                # live reader retires
+                self.lora.release(req.adapter, req.request_id)
             if self._drain_capture is not None:
                 # BEFORE the eviction below: more requests than
                 # keep_finished may retire in one step
@@ -392,9 +460,13 @@ class Engine:
             return events
         self._run_cow(plan)
         (tokens, tables, starts, lens, temps, seeds, emit,
-         _adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk)
+         adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk)
+        before = _kernels.counts(self.device.type)
         logits = self._step_fn(self._tensor(tokens), self._tensor(tables),
-                               self._tensor(starts), self._tensor(lens))
+                               self._tensor(starts), self._tensor(lens),
+                               self._tensor(adapters))
+        after = _kernels.counts(self.device.type)
+        self._last_launches = {k: after[k] - before[k] for k in after}
         nxt = _sample(logits, temps, self._key, seeds, emit).cpu().numpy()
         margins = None
         if self.margins is not None:

@@ -119,8 +119,6 @@ def test_bf16_parameters_load_exactly():
 
 def test_paths_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_llama("tiny", device="cpu", fused_ops="mega")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_llama("tiny", device="cpu", fuse_qkv_mlp=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_llama("tiny", device="cpu", use_recompute=True)
