@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run on its own (nothing is caught):
 
-1. build: compiles the seven CUDA kernel sources from paddle_tpu_torch/csrc
-   for sm_90a, one nvcc per source, all at once (timed as set-up);
+1. build: compiles the eleven CUDA kernel sources from
+   paddle_tpu_torch/csrc for sm_90a, one nvcc per source, all at once
+   (timed as set-up);
 2. kernels: holds each kernel against its plain PyTorch version on the
    card, in bf16 and f32, at the serving path's llama2-7b shapes (T = B*C
    = 128 tokens; ragged attention B=8, C=16, page 16, contexts up to 512),
@@ -29,7 +30,14 @@ Phases, each of which fails the run on its own (nothing is caught):
    through the 4096x32000 LM head) with a cuBLAS yardstick over the
    widened weight, each kind's sum over one step's 225 calls, and their
    edge cases (M 1/8/257, K 100/102, N 200, f16, an unaligned x, every
-   int8 code and every packed int4 byte);
+   int8 code and every packed int4 byte); the fused GELU MLP at the
+   gpt3-6.7b engine step (T = 128, H 4096, F 16384), gpt3-13b's H 5120 /
+   F 20480 and T = 1 and 257 (library: addmm -> gelu -> addmm), and paged
+   decode attention at the gpt3-6.7b decode shape (B = 8, 32 heads of
+   128, page 16, ragged lengths up to 512), at the llama2-70b GQA shape
+   and at edge cases (lengths 1, a page multiple, 512, a zero-length
+   slot that must give zeros, head dims 128 and 64; library: SDPA over
+   the gathered KV);
 3. engine: llama2-7b in bf16, all 32 layers, random weights drawn on the
    card from a seeded generator, behind Engine(max_batch=8,
    max_seq_len=512, page_size=16): 8 staggered greedy requests, two of
@@ -40,11 +48,22 @@ Phases, each of which fails the run on its own (nothing is caught):
    "int8") and again "int4": the quantized kernel launched 225 times per
    step (7 projections x 32 layers + the LM head), ragged attention 32,
    the fused QKV/MLP kernels 0; weight bytes on the card against bf16;
+   then gpt3-6.7b in bf16, all 32 layers, behind the same engine and
+   traffic (gpt_engine: 32 fused GELU-MLP and 32 ragged-attention
+   launches per step, none of the Llama kernels), and the same model on
+   the bucket-prefill/decode path (gpt_paged: pools from PagedKVCache,
+   tables from its allocator padded with the sentinel; the 8 prompts in
+   one prefill call through the flash forward kernel, then 32 greedy
+   decode calls of 32 paged-attention launches each; how many leading
+   tokens equal the gpt_engine streams is reported, not gated);
 4. cross-check: a 2-layer model at full llama2-7b width in f32, the same
    weights on both sides, kernels on the card against the plain versions
    on the CPU: greedy streams must be equal under the near-tie rule; the
    same for int8 and int4, whose codes and scales quantized on the card
-   must equal the CPU's bit for bit;
+   must equal the CPU's bit for bit; gpt2-345m cut to 2 layers (biases
+   and LayerNorms randomised), the Engine's streams under the same rule,
+   and the paged prefill + 4 decode calls' logits within f32 tolerance,
+   the same paged check for llama-350m-hd128 cut to 2 layers;
 5. train: llama2-7b width cut to 4 layers, amp O2 (bf16 parameters, f32
    master weights), AdamW + ClipGradByGlobalNorm through TrainStep, batch
    2 x 2048, 5 steps on one fixed batch, PyTorch's default precision:
@@ -59,8 +78,9 @@ Phases, each of which fails the run on its own (nothing is caught):
    parameter's update must agree (decay-only elements to 4 f32 units).
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, flash_edges,
-quant_edges, engine, quant_engine, cross_check, quant_cross_check, train,
-train_cross_check), the card's name and power limit,
+quant_edges, engine, quant_engine, gpt_engine, gpt_paged, cross_check,
+quant_cross_check, gpt_cross_check, train, train_cross_check), the card's
+name and power limit,
 a {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  Exits non-zero without a CUDA device.
 """
@@ -82,23 +102,26 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import PRESETS, causal_lm_loss, llama
+from paddle_tpu_torch.models import PRESETS, causal_lm_loss, gpt, llama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import quant as Q
 from paddle_tpu_torch.ops.cuda import KERNELS as CUDA_KERNELS
 from paddle_tpu_torch.ops.cuda import _build, counts
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_adamw as AD
+from paddle_tpu_torch.ops.cuda import fused_gelu_mlp as FG
 from paddle_tpu_torch.ops.cuda import fused_mlp as FM
 from paddle_tpu_torch.ops.cuda import fused_norm_qkv as FQ
 from paddle_tpu_torch.ops.cuda import int4_matmul as I4
 from paddle_tpu_torch.ops.cuda import int8_matmul as I8
 from paddle_tpu_torch.ops.cuda import lora_matmul as LM
 from paddle_tpu_torch.ops.cuda import mega_decode as MD
+from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.nn import functional as NF
-from paddle_tpu_torch.serving import Engine, LoRAPool, random_adapter
+from paddle_tpu_torch.serving import (Engine, LoRAPool, PagedKVCache,
+                                      random_adapter)
 
 # H100 SXM, NVIDIA's data sheet (dense): memory rate and peak by type
 HBM_BYTES_S = 3.35e12
@@ -139,6 +162,10 @@ KERNELS = [
      "paddle_tpu/ops/pallas/mega_decode.py:261"),
     ("grouped_bgmv", "paddle_tpu_torch/csrc/lora_matmul.cu",
      "paddle_tpu/ops/pallas/lora_matmul.py:109"),
+    ("fused_gelu_mlp", "paddle_tpu_torch/csrc/fused_gelu_mlp.cu",
+     "paddle_tpu/ops/pallas/fused_mlp.py:181"),
+    ("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
+     "paddle_tpu/ops/pallas/decode_attention.py:124"),
 ]
 SERVING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "ragged_paged_attention")
 QUANT = {"int8": ("int8_matmul", I8.int8_matmul, I8.plain),
@@ -995,6 +1022,9 @@ def kernel_phase():
     # the megakernel and grouped-BGMV cases: a generator of their own
     rows += new_kernel_rows(torch.Generator(device="cuda").manual_seed(3),
                             np.random.default_rng(3))
+    # the GPT path's kernels: a generator of their own
+    rows += gpt_kernel_rows(torch.Generator(device="cuda").manual_seed(4),
+                            np.random.default_rng(4))
     return rows
 
 
@@ -1032,9 +1062,12 @@ def serve(eng, rng, n_plain, prompt_lo, prompt_hi, new_lo, new_hi):
     return reqs, out
 
 
-def reset_launches():
+def reset_launches(device_type: str = "cuda"):
+    """Set every kernel's launch count (``"cuda"``) or plain-version call
+    count (``"cpu"``) to 0."""
+    attr = "launches" if device_type == "cuda" else "plain_calls"
     for kern in CUDA_KERNELS.values():
-        kern.launches = 0
+        setattr(kern, attr, 0)
 
 
 def kernel_launches():
@@ -1524,6 +1557,346 @@ def lora_cross_check_phase():
     return res
 
 
+# -- GPT phases --------------------------------------------------------------
+
+def gelu_case(t, h, f, dtype, gen):
+    """The fused GELU MLP at (T, H, F).  Library: torch.addmm -> F.gelu ->
+    torch.addmm (cuBLAS with the bias in the epilogue)."""
+    x = rand((t, h), dtype, gen)
+    w1, b1 = rand((h, f), dtype, gen, 0.02), rand((f,), dtype, gen, 0.1)
+    w2, b2 = rand((f, h), dtype, gen, 0.02), rand((h,), dtype, gen, 0.1)
+    kern = lambda: FG.fused_gelu_mlp(x, w1, b1, w2, b2)
+    plain = lambda: FG.plain(x, w1, b1, w2, b2)
+    library = lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1)), w2)
+    nbytes = x.element_size() * (2 * t * h + 2 * h * f + f + h)
+    err = compare("gelu_mlp", kern(), plain(), dtype)
+    return err, kern, plain, library, nbytes, 4.0 * t * h * f
+
+
+def paged_case(b, h, hkv, d, page, lens, dtype, gen, rng):
+    """Paged decode attention: one q row per slot over pages of a random
+    permutation of the pool, tables padded with the out-of-range sentinel
+    past each slot's live pages (at least one sentinel column).  A
+    zero-length slot must give exact zeros.  Library: SDPA over the
+    gathered, head-repeated KV with a length mask (gather included)."""
+    lens = np.asarray(lens, np.int32)
+    mb = -(-int(lens.max()) // page) + 1
+    nb = b * mb
+    q = rand((b, h, d), dtype, gen)
+    kp, vp = rand((nb, page, hkv, d), dtype, gen), \
+        rand((nb, page, hkv, d), dtype, gen)
+    tables = np.full((b, mb), nb, np.int32)
+    perm = rng.permutation(nb)
+    used = 0
+    for s in range(b):
+        n = -(-int(lens[s]) // page)
+        tables[s, :n] = perm[used:used + n]
+        used += n
+    tt = torch.from_numpy(tables).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    kern = lambda: PA.paged_attention(q, kp, vp, tt, ln)
+    plain = lambda: PA.plain(q, kp, vp, tt, ln)
+    g = h // hkv
+
+    def library():
+        k, v = RA.paged_gather_dense(kp, vp, tt)
+        k = k.transpose(1, 2).repeat_interleave(g, 1)
+        v = v.transpose(1, 2).repeat_interleave(g, 1)
+        mask = torch.arange(k.shape[2], device="cuda") < ln[:, None]
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask[:, None, None])
+
+    got = kern()
+    err = compare("paged_attn", got, plain(), dtype)
+    assert bool((got[ln == 0] == 0).all()), "zero-length slot not zeros"
+    it = q.element_size()
+    nbytes = it * (2 * b * h * d + 2 * int(lens.sum()) * hkv * d) \
+        + 4 * (b * mb + b)
+    return err, kern, plain, library, nbytes, 4.0 * int(lens.sum()) * h * d
+
+
+def gpt_kernel_rows(gen, rng):
+    """The fused GELU MLP at the gpt3-6.7b engine step (T = 128, H 4096,
+    F 16384), at gpt3-13b's H 5120 / F 20480 and at T = 1 and T = 257;
+    paged decode attention at the gpt3-6.7b decode shape (B = 8, 32 heads
+    of 128, page 16, ragged lengths up to 512), at the llama2-70b GQA
+    shape (64 q heads over 8 kv heads) and at edge cases (lengths 1, an
+    exact page multiple, the table's last position, a zero-length slot;
+    head dims 128 and 64).  bf16 and f32."""
+    rows = []
+    for geom, (t, h, f) in (("gpt3-6.7b", (128, 4096, 16384)),
+                            ("gpt3-13b", (128, 5120, 20480)),
+                            ("gpt3-6.7b T=1", (1, 4096, 16384)),
+                            ("gpt3-6.7b T=257", (257, 4096, 16384))):
+        for dt in (torch.bfloat16, torch.float32):
+            scratch = 4 * FG.KERNEL.helper(
+                "pt_fused_gelu_mlp_scratch", [ctypes.c_int] * 3,
+                ctypes.c_longlong)(t, h, f)
+            rows.append(timed_row("fused_gelu_mlp", geom, dt,
+                                  gelu_case(t, h, f, dt, gen),
+                                  {"shape": [t, h, f],
+                                   "scratch_bytes": scratch}))
+            torch.cuda.empty_cache()
+    # a card tensor the kernel cannot take raises, never falls back
+    for h, f, dt in ((64, 256, torch.bfloat16), (128, 512, torch.float16)):
+        z = lambda *shape: torch.zeros(shape, dtype=dt, device="cuda")
+        try:
+            FG.fused_gelu_mlp(z(4, h), z(h, f), z(f), z(f, h), z(h))
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError(f"fused_gelu_mlp took H={h} {dt}")
+    ragged = [int(n) for n in rng.integers(1, 513, size=8)]
+    for geom, (b, h, hkv, d, lens) in (
+            ("gpt3-6.7b", (8, 32, 32, 128, ragged)),
+            ("llama2-70b-gqa", (8, 64, 8, 128, ragged)),
+            ("edges d=128", (8, 32, 32, 128, [1, 16, 64, 0, 37, 512, 3,
+                                              200])),
+            ("edges d=64", (6, 16, 16, 64, [1, 32, 0, 17, 512, 48]))):
+        for dt in (torch.bfloat16, torch.float32):
+            rows.append(timed_row("paged_attention", geom, dt,
+                                  paged_case(b, h, hkv, d, 16, lens, dt,
+                                             gen, rng),
+                                  {"lens": lens}))
+    return rows
+
+
+def paged_generate(model, prompts, steps, device, forced=None, page=16):
+    """The bucket-prefill/decode path through ``model`` with pools from a
+    ``PagedKVCache`` and tables from its allocator, padded with the
+    out-of-range sentinel: one prefill call over all prompts (bucket of
+    the longest, rounded up to 16), then ``steps`` one-token decode calls,
+    greedy (or the tokens of ``forced``, (B, steps + 1)).  Returns the
+    f32 logits of each call on the CPU ((B, V) at each slot's last
+    position), the tokens, the wall time of the prefill and of the
+    decode calls (synchronised on the card), and the kernel launches of
+    each part."""
+    cfg = model.cfg
+    kvh = getattr(cfg, "num_key_value_heads", None) or \
+        cfg.num_attention_heads
+    b = len(prompts)
+    plens = np.array([len(p) for p in prompts], np.int32)
+    s = -(-int(plens.max()) // 16) * 16
+    mb = -(-(int(plens.max()) + steps) // page)
+    kv = PagedKVCache(cfg.num_hidden_layers, b * mb, page, kvh,
+                      cfg.head_dim, dtype=next(model.parameters()).dtype,
+                      device=device)
+    tables = np.full((b, mb), kv.oob_block, np.int32)
+    for i, n in enumerate(plens):
+        need = -(-(int(n) + steps) // page)
+        tables[i, :need] = kv.allocator.allocate(need)
+    ids = np.zeros((b, s), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    dev = torch.device(device)
+    tt = torch.from_numpy(tables).to(dev)
+    lens = torch.from_numpy(plens).to(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    logits, toks, launches = [], [], []
+    caches = kv.caches
+    with torch.no_grad():
+        reset_launches(dev.type)
+        t0 = time.perf_counter()
+        hidden, caches = model.model(torch.from_numpy(ids).to(dev),
+                                     caches=caches, seq_lens=lens,
+                                     block_tables=tt)
+        last = hidden[torch.arange(b, device=dev), lens.long() - 1]
+        lg = model.logits(last).float()
+        sync()
+        prefill_s = time.perf_counter() - t0
+        launches.append(counts(dev.type))
+        reset_launches(dev.type)
+        t1 = time.perf_counter()
+        for i in range(steps + 1):
+            logits.append(lg)
+            tok = lg.argmax(-1) if forced is None else \
+                torch.from_numpy(forced[:, i]).to(dev)
+            toks.append(tok)
+            if i == steps:
+                break
+            hidden, caches = model.model(tok[:, None], caches=caches,
+                                         seq_lens=lens, block_tables=tt)
+            lg = model.logits(hidden[:, 0]).float()
+            lens = lens + 1
+        sync()
+        decode_s = time.perf_counter() - t1
+        launches.append(counts(dev.type))
+    out = {"logits": [x.cpu() for x in logits],
+           "tokens": torch.stack(toks, 1).cpu().numpy(),
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "launches": launches, "bucket": s, "plens": plens.tolist()}
+    return out
+
+
+def gpt_engine_phase():
+    """gpt3-6.7b in bf16, all 32 layers, behind the engine phase's engine
+    and traffic: per step 32 fused GELU-MLP and 32 ragged-attention
+    launches, none of the Llama kernels.  Returns the result, the model
+    (kept for gpt_paged) and the requests and streams."""
+    t0 = time.perf_counter()
+    model = gpt("gpt3-6.7b", dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    reset_launches()
+    steps0 = eng.steps
+    t1 = time.perf_counter()
+    reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    steps = eng.steps - steps0
+    layers = model.cfg.num_hidden_layers
+    stats = eng.prefix_stats()
+    assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
+    for rid, (_, n) in reqs.items():
+        assert len(out[rid]) == n, (rid, len(out[rid]), n)
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert stats["hits"] > 0 and stats["cow_copies"] > 0, stats
+    per_step = {"fused_gelu_mlp": layers, "ragged_paged_attention": layers,
+                "fused_swiglu_mlp": 0, "fused_rms_rope_qkv": 0,
+                "mega_decode": 0, "paged_attention": 0}
+    got = {k: eng.launches_per_step()[k] for k in per_step}
+    assert got == per_step, (got, per_step)
+    launches = kernel_launches()
+    totals = {k: launches[k] for k in per_step}
+    assert totals == {k: v * steps for k, v in per_step.items()}, totals
+    res = {"model": "gpt3-6.7b", "setup_s": setup_s, "steps": steps,
+           "wall_s": wall, "tokens": eng.tokens_emitted,
+           "tok_s": eng.tokens_emitted / wall,
+           "step_ms": wall / steps * 1e3, "prefix": stats,
+           "launches_per_step": got, "launches": totals, "layers": layers,
+           "weight_bytes": tensor_bytes(model.parameters()),
+           "prompt_tokens": int(sum(len(p) for p, _ in reqs.values()))}
+    res["profile"] = profile_steps(eng, rng)
+    log("gpt_engine " + json.dumps(res))
+    del eng
+    torch.cuda.empty_cache()
+    return res, model, reqs, out
+
+
+def gpt_paged_phase(model, reqs, streams, steps=32):
+    """The gpt_engine model on the bucket-prefill/decode path: the 8
+    prompts of gpt_engine in one prefill call (the flash forward kernel,
+    32 launches), then ``steps`` greedy decode calls (32 paged-attention
+    launches each).  How many leading tokens of each request equal its
+    gpt_engine stream is reported, not gated (bf16)."""
+    rids = sorted(reqs)
+    layers = model.cfg.num_hidden_layers
+    run = paged_generate(model, [reqs[r][0] for r in rids], steps, "cuda")
+    pre, dec = run["launches"]
+    want_pre = {"flash_attention_fwd": layers, "fused_gelu_mlp": layers,
+                "paged_attention": 0, "ragged_paged_attention": 0}
+    assert {k: pre[k] for k in want_pre} == want_pre, pre
+    want_dec = {"paged_attention": layers * steps,
+                "fused_gelu_mlp": layers * steps, "flash_attention_fwd": 0,
+                "ragged_paged_attention": 0}
+    assert {k: dec[k] for k in want_dec} == want_dec, dec
+    for lg in run["logits"]:
+        assert bool(torch.isfinite(lg).all()), "non-finite logits"
+    agree = {}
+    for i, rid in enumerate(rids):
+        ref, got = streams[rid], run["tokens"][i]
+        n = 0
+        while n < min(len(ref), len(got)) and int(got[n]) == ref[n]:
+            n += 1
+        agree[rid] = [n, len(ref)]
+    b = len(rids)
+    res = {"model": "gpt3-6.7b", "batch": b, "bucket": run["bucket"],
+           "prompt_lens": run["plens"], "decode_steps": steps,
+           "prefill_ms": run["prefill_s"] * 1e3,
+           "decode_step_ms": run["decode_s"] / steps * 1e3,
+           "decode_tok_s": b * steps / run["decode_s"],
+           "launches_prefill": {k: pre[k] for k in want_pre},
+           "launches_decode": {k: dec[k] for k in want_dec},
+           "leading_equal_vs_engine": agree}
+    log("gpt_paged " + json.dumps(res))
+    return res
+
+
+def randomize_affine(model, seed):
+    """Biases and LayerNorm weights drawn on the model's device (they are
+    zeros and ones at init), so a cross-check exercises them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.05)
+            elif ".ln_" in name and name.endswith(".weight"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen,
+                                              device="cuda"))
+
+
+def paged_cross_check(make, steps=4):
+    """One model built on the card and copied to the CPU: 4 prompts
+    through the bucket prefill and ``steps`` decode calls on both, the
+    card fed the CPU's greedy tokens; every call's logits on the card
+    within the f32 tolerance of the CPU's."""
+    gpu = make(None)
+    cpu = make("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 32000, size=int(n)) for n in (17, 40, 64, 90)]
+    ref = paged_generate(cpu, prompts, steps, "cpu")
+    got = paged_generate(gpu, prompts, steps, "cuda", forced=ref["tokens"])
+    err = max(compare(f"paged logits {i}", g, r, torch.float32)
+              for i, (g, r) in enumerate(zip(got["logits"], ref["logits"])))
+    pre, dec = got["launches"]
+    layers = gpu.cfg.num_hidden_layers
+    assert pre["flash_attention_fwd"] == layers, pre
+    assert dec["paged_attention"] == layers * steps, dec
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"calls": steps + 1, "max_abs_err": err,
+            "launches_decode": {k: v for k, v in dec.items() if v}}
+
+
+def gpt_cross_check_phase():
+    """gpt2-345m cut to 2 layers, f32, biases and LayerNorms randomised,
+    card against CPU: the Engine's greedy streams equal under the
+    near-tie rule (at most one request exempt), prefix stats equal; the
+    paged path's logits within f32 tolerance (prefill + 4 decode calls).
+    The same paged-path check for llama-350m-hd128 cut to 2 layers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make_gpt(dev):
+        m = gpt("gpt2-345m", num_hidden_layers=2, dtype="float32",
+                device=dev, seed=1)
+        if dev is None:
+            randomize_affine(m, 5)
+        return m
+
+    gpu = make_gpt(None)
+    cpu = make_gpt("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    outs = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+        eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                     device=dev).warmup()
+        eng.margins = {}
+        reqs, out = serve(eng, np.random.default_rng(2), 3, 17, 90, 6, 10)
+        assert eng.kv_blocks_used == 0
+        outs[tag] = (out, eng.margins, eng.prefix_stats())
+    (ref, margins, rstats), (got, _, gstats) = outs["cpu"], outs["gpu"]
+    verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
+                for rid in ref}
+    exempt = sorted(r for r, v in verdicts.items() if v == "exempt")
+    assert sorted(got) == sorted(ref) and len(exempt) <= 1, exempt
+    assert rstats == gstats, (rstats, gstats)
+    del gpu, cpu, outs
+    torch.cuda.empty_cache()
+    res = {"engine": {"requests": len(ref),
+                      "equal": sum(v == "equal" for v in verdicts.values()),
+                      "exempt": exempt,
+                      "min_margin": min(min(m) for m in margins.values())},
+           "gpt_paged": paged_cross_check(make_gpt),
+           "llama_paged": paged_cross_check(
+               lambda dev: llama("llama-350m-hd128", num_hidden_layers=2,
+                                 dtype="float32", device=dev, seed=1))}
+    log("gpt_cross_check " + json.dumps(res))
+    return res
+
+
 # -- train phases ----------------------------------------------------------
 
 def train_setup(cfg_name, layers, dtype, seed, device=None, lr=3e-4):
@@ -1742,10 +2115,15 @@ def main() -> int:
     quant = {kind: quant_engine_phase(kind) for kind in QUANT}
     mega = mega_engine_phase()
     lora = lora_engine_phase()
+    gpt_engine, gpt_model, gpt_reqs, gpt_streams = gpt_engine_phase()
+    gpt_paged = gpt_paged_phase(gpt_model, gpt_reqs, gpt_streams)
+    del gpt_model
+    torch.cuda.empty_cache()
     cross_check_phase()
     quant_cross_check_phase()
     mega_cross_check_phase()
     lora_cross_check_phase()
+    gpt_cross_check_phase()
     train = train_phase()
     train_cross_check_phase()
     main_rows = {r["name"]: r for r in kernel_rows
@@ -1753,9 +2131,15 @@ def main() -> int:
                  and "shape" not in r}
     main_rows.update({r["name"]: r for r in kernel_rows
                       if r["geometry"] == "llama2-7b-step"})
+    main_rows.update({r["name"]: r for r in kernel_rows
+                      if r["geometry"] == "gpt3-6.7b"
+                      and r["dtype"] == "bfloat16"})
     launches = {**train["launches"], **engine["launches"],
                 "mega_decode": mega["launches"]["mega_decode"],
-                "grouped_bgmv": lora["launches"]["grouped_bgmv"]}
+                "grouped_bgmv": lora["launches"]["grouped_bgmv"],
+                "fused_gelu_mlp": gpt_engine["launches"]["fused_gelu_mlp"],
+                "paged_attention":
+                    gpt_paged["launches_decode"]["paged_attention"]}
     for kind, (name, _, _) in QUANT.items():
         launches[name] = quant[kind]["launches"][name]
     line = {"kernels": [

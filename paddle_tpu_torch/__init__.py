@@ -10,8 +10,9 @@ kernel on the ported path is a hand-written CUDA kernel for sm_90a under
 the caller passes ``device="cpu"``; on CPU tensors each kernel wrapper
 runs its plain PyTorch version.
 
-Ported so far: Llama serving through the paged ragged ``serving.Engine``
-step, and Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
+Ported so far: Llama and GPT serving through the paged ragged
+``serving.Engine`` step and the paged bucket-prefill/decode model path,
+and Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
 ``nn.ClipGradByGlobalNorm`` and ``amp.decorate`` at O2 (ROADMAP.md lists
 what is still to port).
 """

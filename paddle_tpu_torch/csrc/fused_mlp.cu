@@ -32,35 +32,18 @@
 //           (splits, Tpad, H);
 //   pass 2: a small kernel sums the partials in a fixed split order and
 //           rounds.  No atomics, so the sum order is the same every run.
-#include "common.cuh"
+// The tile geometry, the split plan, the down projection of step 3 and
+// pass 2 are csrc/mlp_tiles.cuh, shared with the GELU MLP kernel.
+#include "mlp_tiles.cuh"
 
-#include <mma.h>
-
-#include <algorithm>
 #include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace mlp;
 
-constexpr int kBT = 64;    // token rows per block
-constexpr int kBI = 128;   // intermediate columns per chunk
-constexpr int kBN = 128;   // output columns per down-projection tile
-constexpr int kThreads = 256;
-constexpr long long kMaxPartialRows = 32768;   // splits x Tpad, at most
-
-// ---- f32: SIMT units, 16 x 16 threads, each 4 rows x 8 columns --------
-
-constexpr int kTX = 16, kTY = 16, kRM = kBT / kTY;
-constexpr int kBKs = 16;
 constexpr size_t kSimtSmem =
     sizeof(float) * (kBKs * kBT + 2 * kBKs * kBI + kBI * kBT);
-
-__device__ __forceinline__ int col_of(int tx, int c) {
-  // four columns in each half of a 128-wide tile: conflict-free loads
-  return (c < 4) ? tx * 4 + c : 64 + tx * 4 + (c - 4);
-}
 
 __global__ void __launch_bounds__(kThreads)
 swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
@@ -134,80 +117,17 @@ swiglu_partial_simt(const float* __restrict__ x, const float* __restrict__ wg,
     }
   __syncthreads();
 
-  // 3. h chunk times Wd[i0:i0+kBI, :] -> f32 partial, one column tile at a
-  //    time
-  float* ds = gs;                   // [kBKs][kBN], reuses the gate stage
-  for (int n0 = 0; n0 < h; n0 += kBN) {
-    float acc[kRM][8];
-#pragma unroll
-    for (int r = 0; r < kRM; ++r) {
-      const int row = t0 + ty * kRM + r;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        acc[r][c] = (ch == 0 || row >= t)
-                        ? 0.f
-                        : prow[(size_t)row * h + n0 + col_of(tx, c)];
-    }
-    for (int k0 = 0; k0 < kBI; k0 += kBKs) {
-      for (int e = tid; e < kBKs * kBN; e += kThreads) {
-        const int kk = e / kBN, c = e % kBN;
-        ds[e] = wd[(size_t)(i0 + k0 + kk) * h + n0 + c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBKs; ++kk) {
-        float a[kRM], b[8];
-#pragma unroll
-        for (int r = 0; r < kRM; ++r) a[r] = hs[(k0 + kk) * kBT + ty * kRM + r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) b[c] = ds[kk * kBN + col_of(tx, c)];
-#pragma unroll
-        for (int r = 0; r < kRM; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] += a[r] * b[c];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < kRM; ++r) {
-      const int row = t0 + ty * kRM + r;
-      if (row >= t) continue;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        prow[(size_t)row * h + n0 + col_of(tx, c)] = acc[r][c];
-    }
-  }
+  // 3. h chunk times Wd[i0:i0+kBI, :] -> f32 partial (reuses the gate
+  //    stage)
+  down_partial_simt(hs, gs, wd, prow, t, t0, h, i0, ch == 0);
   }   // chunks of this split
 }
 
 // ---- bf16: tensor cores, 8 warps as 2 x 4, each a 32 x 32 tile --------
 
-constexpr int kBK = 32;
-constexpr int kLdA = kBK + 8;     // bf16 rows of the x tile
-constexpr int kLdB = kBI + 8;     // bf16 rows of a weight tile (kBI == kBN)
-constexpr int kLdH = kBI + 8;     // bf16 rows of the h chunk
-constexpr int kLdC = kBI + 4;     // f32 rows of the h staging tile
 constexpr size_t kTcSmem = sizeof(bf16) * (kBT * kLdA + 2 * kBK * kLdB +
                                            kBT * kLdH) +
                            sizeof(float) * kBT * kLdC;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows x 128 bf16 weight tile rows [k0, k0+kBK) into shared memory
-__device__ __forceinline__ void load_w_tile(bf16* dst,
-                                            const bf16* __restrict__ src,
-                                            int ld, int k0, int c0) {
-  for (int e = threadIdx.x; e < kBK * kBI / 8; e += kThreads) {
-    const int kk = e / (kBI / 8), v = e % (kBI / 8);
-    *reinterpret_cast<uint4*>(dst + kk * kLdB + v * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(k0 + kk) * ld + c0 +
-                                        v * 8);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
@@ -301,87 +221,10 @@ swiglu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   }
   __syncthreads();
 
-  // 3. h chunk times Wd[i0:i0+kBI, :] added into the f32 partial,
-  //    straight from the fragments (the partial has tpad rows, so every
-  //    tile row exists; the first chunk of a split starts from zero)
-  for (int n0 = 0; n0 < h; n0 += kBN) {
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (ch == 0)
-          wmma::fill_fragment(acc[i][j], 0.f);
-        else
-          wmma::load_matrix_sync(
-              acc[i][j],
-              prow + (size_t)(t0 + wm * 32 + i * 16) * h + n0 + wn * 32 +
-                  j * 16,
-              h, wmma::mem_row_major);
-      }
-    for (int k0 = 0; k0 < kBI; k0 += kBK) {
-      load_w_tile(bg, wd, h, i0 + k0, n0);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        FragA a[2];
-        FragB b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              a[i], hs + (wm * 32 + i * 16) * kLdH + k0 + kk, kLdH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], bg + kk * kLdB + wn * 32 + j * 16,
-                                 kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            prow + (size_t)(t0 + wm * 32 + i * 16) * h + n0 + wn * 32 +
-                j * 16,
-            acc[i][j], h, wmma::mem_row_major);
-  }
-  __syncthreads();
+  // 3. h chunk times Wd[i0:i0+kBI, :] added into the f32 partial
+  //    (reuses the gate stage)
+  down_partial_tc(hs, bg, wd, prow, t0, h, i0, ch == 0);
   }   // chunks of this split
-}
-
-// ---- pass 2 --------------------------------------------------------------
-
-template <typename T>
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  T* __restrict__ out, int splits,
-                                  size_t n, size_t stride) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += partial[(size_t)p * stride + i];
-  out[i] = pt::from_f<T>(s);
-}
-
-int tpad_of(int t) { return (t + kBT - 1) / kBT * kBT; }
-
-// I chunks per split: one while splits x Tpad <= kMaxPartialRows, more
-// once T is large.
-int chunks_per_split(int t, int inter) {
-  const long long chunks = inter / kBI;
-  const long long max_splits =
-      std::max(1LL, kMaxPartialRows / (long long)tpad_of(t));
-  return (int)((chunks + max_splits - 1) / max_splits);
-}
-
-int splits_of(int t, int inter) {
-  const int cps = chunks_per_split(t, inter);
-  return (inter / kBI + cps - 1) / cps;
 }
 
 template <typename T>
@@ -414,9 +257,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd,
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t n = (size_t)t * h;
-  sum_splits_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part, static_cast<T*>(out), splits, n, (size_t)tpad * h);
+  sum_splits<T>(part, nullptr, out, splits, t, h, stream);
   return 0;
 }
 

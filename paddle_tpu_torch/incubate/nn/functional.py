@@ -1,15 +1,18 @@
 """``paddle_tpu.incubate.nn.functional`` counterpart: the fused entry
 points of the serving path, with the reference's signatures.
 
-``fused_rms_rope_qkv``, ``fused_swiglu_mlp``, ``ragged_paged_attend``,
-``mega_decode_layer`` and ``lora_bgmv`` launch their hand-written kernels
-(``ops/cuda``) on CUDA tensors and run the plain versions on CPU
-tensors.  The ``_..._ref``/``_paged_*`` names
-are the plain versions under the reference's names.  ``_paged_span_write``
+``fused_rms_rope_qkv``, ``fused_swiglu_mlp``, ``fused_gelu_mlp``,
+``ragged_paged_attend``, ``paged_attention`` (and ``paged_decode_attend``
+through it), ``mega_decode_layer`` and ``lora_bgmv`` launch their
+hand-written kernels (``ops/cuda``) on CUDA tensors and run the plain
+versions on CPU tensors.  The ``_..._ref``/``_paged_*``/
+``_attend_dense_gqa`` names are the plain versions under the reference's
+names.  ``_paged_span_write``, ``write_paged_kv``, ``paged_prefill_write``
 and ``paged_copy_blocks`` are plain indexed tensor code here as in the
 reference, where they are not Pallas kernels either.
 
-``fused_swiglu_mlp`` and ``fused_rms_rope_qkv`` are differentiable: each
+``fused_swiglu_mlp``, ``fused_gelu_mlp`` and ``fused_rms_rope_qkv`` are
+differentiable: each
 is a ``torch.autograd.Function`` whose forward is the kernel (the plain
 version on the CPU) and whose backward recomputes through the plain
 composition under autograd, exactly as the reference's ``custom_vjp``
@@ -26,10 +29,11 @@ keeps PyTorch's global setting (full f32 by default).
 Out-of-range block ids.  The serving scheduler makes dead slots and
 warmup inert by pointing block tables at the sentinel id ``num_blocks``.
 JAX drops out-of-range scatters and clamps gathers; PyTorch raises (and a
-CUDA device-side assert kills the process).  So the span write and the
-page copy mask dead entries out before indexing, and the gather clamps.
-Unlike the reference, both writes update the pools IN PLACE (the engine
-owns exactly one copy of its pools) and return the same tensors.
+CUDA device-side assert kills the process).  So the span write, the
+decode write and the page copy mask dead entries out before indexing,
+and the gather clamps.  Unlike the reference, the writes update the pools
+IN PLACE (the engine owns exactly one copy of its pools) and return the
+same tensors.
 """
 
 from __future__ import annotations
@@ -40,22 +44,29 @@ from typing import Optional
 
 import torch
 
+from ...ops.cuda import fused_gelu_mlp as _fg
 from ...ops.cuda import fused_mlp as _fm
 from ...ops.cuda import fused_norm_qkv as _fq
 from ...ops.cuda import lora_matmul as _lm
 from ...ops.cuda import mega_decode as _md
+from ...ops.cuda import paged_attention as _pa
 from ...ops.cuda import ragged_attention as _ra
 from ...ops.cuda._common import dot_f32
 
-__all__ = ["fused_rms_rope_qkv", "fused_swiglu_mlp", "lora_bgmv",
-           "lora_delta", "mega_decode_layer", "paged_copy_blocks",
-           "ragged_paged_attend"]
+__all__ = ["fused_gelu_mlp", "fused_rms_rope_qkv", "fused_swiglu_mlp",
+           "lora_bgmv", "lora_delta", "mega_decode_layer",
+           "paged_attend", "paged_attention", "paged_copy_blocks",
+           "paged_decode_attend", "paged_positions", "paged_prefill_write",
+           "ragged_paged_attend", "write_paged_kv"]
 
 _fused_swiglu_mlp_ref = _fm.plain
+_fused_gelu_mlp_ref = _fg.plain
 _fused_rms_rope_qkv_ref = _fq.plain
 _lora_bgmv_ref = _lm.plain
 _paged_gather_dense = _ra.paged_gather_dense
 _ragged_attend_dense = _ra.ragged_attend_dense
+_attend_dense_gqa = _pa.attend_dense_gqa
+_INT8_POOLS = "int8 paged pools are not ported yet (ROADMAP.md)"
 
 
 @contextlib.contextmanager
@@ -102,6 +113,18 @@ class _FusedSwigluMLP(torch.autograd.Function):
         return tuple(_vjp_of_plain(ctx, _fm.plain, (ct,)))
 
 
+class _FusedGeluMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        dt = x.dtype
+        return _fg.fused_gelu_mlp(x, w1.to(dt), b1, w2.to(dt), b2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return tuple(_vjp_of_plain(ctx, _fg.plain, (ct,)))
+
+
 class _FusedRmsRopeQkv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, norm_weight, w_q, w_k, w_v, cos, sin, head_dim,
@@ -127,6 +150,13 @@ def fused_swiglu_mlp(x, w_gate, w_up, w_down):
     return _FusedSwigluMLP.apply(x, w_gate, w_up, w_down)
 
 
+def fused_gelu_mlp(x, w1, b1, w2, b2):
+    """``gelu(x @ W1 + b1) @ W2 + b2`` in one kernel (GPT's 4h FFN).
+    x: (T, H); w1 (H, F); b1 (F,); w2 (F, H); b2 (H,); returns (T, H) in
+    x.dtype."""
+    return _FusedGeluMLP.apply(x, w1, b1, w2, b2)
+
+
 def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
                        head_dim: int, eps: float = 1e-5):
     """rms_norm -> q/k/v projections -> rotate-half rope on q/k in one
@@ -143,10 +173,111 @@ def _paged_span_write(cache, k, v, block_tables, span_starts, span_lens):
     dead rows and sentinel table entries never touch the pools).  In
     place; returns ``cache``."""
     if len(cache) != 2:
-        raise NotImplementedError(
-            "int8 paged pools are not ported yet (ROADMAP.md)")
+        raise NotImplementedError(_INT8_POOLS)
     return _ra.span_write(cache[0], cache[1], k, v, block_tables,
                           span_starts, span_lens)
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
+                    scale: Optional[float] = None):
+    """Decode attention over a PAGED KV pool: q (B, H, D) attends
+    positions ``[0, context_lens)`` of each slot through its block table
+    (B, MB) int32; pools (NB, page, H_kv, D).  The paged-attention kernel
+    on CUDA tensors, its plain version on CPU tensors; both give zeros
+    for a slot with ``context_lens == 0``, as the TPU kernel does (the
+    reference's dense fallback gives NaN there)."""
+    return _pa.paged_attention(q, k_cache, v_cache, block_tables,
+                               context_lens, scale=scale)
+
+
+def write_paged_kv(k_cache, v_cache, new_k, new_v, block_tables,
+                   context_lens):
+    """Write this step's (B, H_kv, D) k/v into the paged pools at
+    position ``context_lens - 1`` of each slot.  A slot whose position
+    has no table entry, or whose entry is out of range (the scheduler's
+    dead-slot sentinel), is masked out before indexing -- JAX drops that
+    scatter.  In place; returns the pools."""
+    nb, bs = k_cache.shape[:2]
+    mb = block_tables.shape[1]
+    pos = context_lens.long() - 1
+    pg = torch.div(pos, bs, rounding_mode="floor")
+    ok = (pos >= 0) & (pg < mb)
+    rows = ok.nonzero(as_tuple=True)[0]
+    blk = block_tables.long()[rows, pg[rows]]
+    keep = (blk >= 0) & (blk < nb)
+    rows, blk = rows[keep], blk[keep]
+    off = pos[rows] % bs
+    k_cache[blk, off] = new_k[rows].to(k_cache.dtype)
+    v_cache[blk, off] = new_v[rows].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def paged_decode_attend(cache, q, new_k, new_v, block_tables, write_pos,
+                        scale: Optional[float] = None):
+    """One decode step against the paged pools: this token's (B, H_kv, D)
+    k/v is written at ``write_pos`` (the tokens already cached) of each
+    slot (:func:`write_paged_kv`), then q (B, H, D) attends
+    ``write_pos + 1`` positions (:func:`paged_attention`).  A dead slot's
+    sentinel table drops its write and gives a finite output the caller
+    discards.  fp pools only: the int8 4-tuple raises.  Returns ``(out,
+    cache)``, the pools updated in place."""
+    if len(cache) != 2:
+        raise NotImplementedError(_INT8_POOLS)
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    ctx = (write_pos + 1).to(torch.int32)
+    kc, vc = write_paged_kv(cache[0], cache[1], new_k, new_v, block_tables,
+                            ctx)
+    return paged_attention(q, kc, vc, block_tables, ctx, scale=scale), \
+        (kc, vc)
+
+
+def paged_prefill_write(cache, k, v, block_tables, prompt_lens):
+    """Write a prefill chunk ``k``/``v`` (B, S, H_kv, D) into the paged
+    pools at positions ``[0, prompt_lens)`` of each slot: the span write
+    with every span starting at 0 (the bucket-prefill path).  In place;
+    returns ``cache``."""
+    starts = torch.zeros_like(prompt_lens)
+    return _paged_span_write(cache, k, v, block_tables, starts, prompt_lens)
+
+
+def paged_attend(cache, q, k, v, block_tables, seq_lens=None,
+                 span_starts=None):
+    """One decoder layer's attention against its paged pool pair
+    ``cache``, the branch chosen as both model families' paged forward
+    chooses it: with ``span_starts`` the ragged step
+    (:func:`ragged_paged_attend`, ``seq_lens`` the span lengths); with
+    S == 1 and ``seq_lens`` a one-token decode written at ``seq_lens``
+    (:func:`paged_decode_attend`); else the bucket prefill, written at
+    ``[0, seq_lens)`` (all S rows without ``seq_lens``) and attended
+    causally.  q/k/v (B, S, H|H_kv, D); returns ``(out (B, S, H, D),
+    cache)``.  :func:`paged_positions` gives the matching positions."""
+    from ...nn.functional import scaled_dot_product_attention
+    b, s = q.shape[:2]
+    if span_starts is not None:
+        return ragged_paged_attend(cache, q, k, v, block_tables,
+                                   span_starts, seq_lens)
+    if s == 1 and seq_lens is not None:
+        out, cache = paged_decode_attend(cache, q[:, 0], k[:, 0], v[:, 0],
+                                         block_tables, seq_lens)
+        return out[:, None], cache
+    plens = seq_lens if seq_lens is not None else torch.full(
+        (b,), s, dtype=torch.int32, device=q.device)
+    cache = paged_prefill_write(cache, k, v, block_tables, plens)
+    return scaled_dot_product_attention(q, k, v, is_causal=True), cache
+
+
+def paged_positions(s: int, seq_lens=None, span_starts=None, device=None):
+    """The token positions of a paged forward over S tokens per slot, by
+    :func:`paged_attend`'s rule: ``span_starts + arange(S)`` (B, S) on the
+    ragged step, ``seq_lens`` (B, 1) for a one-token decode, and None for
+    the bucket prefill, whose positions are ``arange(S)``."""
+    if span_starts is not None:
+        return span_starts.long()[:, None] + \
+            torch.arange(s, device=device)[None, :]
+    if s == 1 and seq_lens is not None:
+        return seq_lens.long()[:, None]
+    return None
 
 
 def ragged_paged_attend(cache, q, new_k, new_v, block_tables, span_starts,
@@ -210,9 +341,7 @@ def mega_decode_layer(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, cache,
     the pools, exactly as the composition writes them.  Forward only
     (serving): the outputs carry no gradient."""
     if len(cache) != 2:
-        raise NotImplementedError(
-            "mega_decode_layer: int8 paged pools are not ported yet "
-            "(ROADMAP.md)")
+        raise NotImplementedError("mega_decode_layer: " + _INT8_POOLS)
     dt = x.dtype
     out, k_new, v_new = _md.mega_decode(
         x, norm_weight.to(dt), w_q.to(dt), w_k.to(dt), w_v.to(dt),

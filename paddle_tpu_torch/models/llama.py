@@ -12,19 +12,27 @@ Ported:
   ``caches``, ``block_tables`` and ``span_starts``): ``fused_rms_rope_qkv``,
   ``ragged_paged_attend`` and ``fused_swiglu_mlp``, and
   ``LlamaForCausalLM.logits``;
+- the paged bucket-prefill/decode forward (``caches`` and
+  ``block_tables`` without ``span_starts``): a prefill writes
+  ``[0, seq_lens)`` with ``paged_prefill_write`` and attends causally
+  (``scaled_dot_product_attention``, the flash kernel on the card) at
+  positions ``arange(S)``; a one-token decode (S == 1 with ``seq_lens``)
+  runs ``paged_decode_attend`` (the paged-attention kernel on the card)
+  at position ``seq_lens`` (``incubate.nn.functional.paged_attend`` and
+  ``paged_positions`` choose the branch and the positions, for GPT too);
 - the unfused branch of both (``fused_ops="off"``, and wherever a
   projection is weight-only quantized, as ``_use_fused`` decides): the
   input norm, ``q_proj``/``k_proj``/``v_proj`` and
   ``apply_rotary_pos_emb``; ``down_proj(swiglu(gate_proj(x),
   up_proj(x)))``;
-- ``fused_ops="mega"`` (``_use_mega``): on the paged ragged step the
-  decoder layer's whole attention block is ``mega_decode_layer`` (the
+- ``fused_ops="mega"`` (``_use_mega``): on the paged ragged step (only
+  there, as in the reference) the decoder layer's whole attention block is ``mega_decode_layer`` (the
   decode megakernel on the card), the MLP after it the fused SwiGLU;
 - multi-LoRA: the ``lora`` pair ``(per-layer stack packs, per-slot
   adapter ids)`` threads through the cached forward; each layer then
   takes the unfused branch and adds ``lora_delta`` to q/k/v (before
   RoPE), o, gate, up and down.
-The other paged branches, ``generate()``, context/model parallelism, the
+The dense-cache path, ``generate()``, context/model parallelism, the
 chunked loss and ``fuse_qkv_mlp`` raise ``NotImplementedError``
 (ROADMAP.md lists them as still to port).  ``"auto"`` resolves to
 ``"on"``: in the port every fused entry point serves (the kernel on the
@@ -145,17 +153,19 @@ def torch_dtype(name) -> torch.dtype:
 
 
 class _Init:
-    """Where and how parameters are made: device, dtype, generator."""
+    """Where and how parameters are made: device, dtype, generator (a
+    Llama or GPT config: its ``dtype`` and ``initializer_range``)."""
 
-    def __init__(self, cfg: LlamaConfig, device, generator):
+    def __init__(self, cfg, device, generator):
         self.device = device
         self.dtype = torch_dtype(cfg.dtype)
         self.generator = generator
         self.std = cfg.initializer_range
 
-    def linear(self, fan_in, fan_out):
-        return Linear(fan_in, fan_out, std=self.std, device=self.device,
-                      dtype=self.dtype, generator=self.generator)
+    def linear(self, fan_in, fan_out, bias: bool = False):
+        return Linear(fan_in, fan_out, bias=bias, std=self.std,
+                      device=self.device, dtype=self.dtype,
+                      generator=self.generator)
 
 
 def _use_fused(cfg: LlamaConfig, layers) -> bool:
@@ -202,13 +212,15 @@ class LlamaAttention(nn.Module):
         cos/sin are (S, head_dim) or per-slot (B, S, head_dim).  Without
         a cache: causal attention over the sequence, returns
         ``o_proj(attn)``.  With the paged pools (``cache``,
-        ``block_tables``, ``span_starts``): the ragged serving branch,
-        returns ``(o_proj(attn), cache)``.  ``lora`` (unfused branch only)
+        ``block_tables``) returns ``(o_proj(attn), cache)``: the ragged
+        serving branch with ``span_starts``; one-token decode with S == 1
+        and ``seq_lens`` (the tokens already cached); else the bucket
+        prefill, written at ``[0, seq_lens)`` (all S rows without
+        ``seq_lens``).  ``lora`` (unfused branch only)
         adds each slot's adapter delta to the q/k/v projections before
         RoPE and to the O projection."""
         from ..incubate.nn.functional import (fused_rms_rope_qkv,
-                                              lora_delta,
-                                              ragged_paged_attend)
+                                              lora_delta, paged_attend)
         cfg = self.cfg
         b, s = x.shape[:2]
         hd = cfg.head_dim
@@ -240,8 +252,8 @@ class LlamaAttention(nn.Module):
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
             return self.o_proj(out.reshape(b, s, cfg.num_attention_heads
                                            * hd))
-        out, cache = ragged_paged_attend(cache, q, k, v, block_tables,
-                                         span_starts, seq_lens)
+        out, cache = paged_attend(cache, q, k, v, block_tables, seq_lens,
+                                  span_starts)
         out = out.reshape(b, s, cfg.num_attention_heads * hd)
         y = self.o_proj(out)
         d = lora_delta(lora, out, "self_attn.o_proj")
@@ -319,7 +331,8 @@ class LlamaDecoderLayer(nn.Module):
                 lora=None):
         """Without a cache returns ``x``; with the paged pools returns
         ``(x, cache)``."""
-        if cache is not None and lora is None and self._use_mega():
+        if cache is not None and span_starts is not None and lora is None \
+                and self._use_mega():
             from ..incubate.nn.functional import mega_decode_layer
             cfg = self.cfg
             b, s = x.shape[:2]
@@ -389,17 +402,19 @@ class LlamaModel(nn.Module):
 
     def _forward_cached(self, input_ids, caches, seq_lens,
                         block_tables=None, span_starts=None, lora=None):
-        """The unified RAGGED serving step: per-slot spans (chunked
-        prefill or decode tokens) at positions ``[start, start+len)``
-        over the paged pools, ``seq_lens`` carrying the span lengths.
-        ``lora`` is the multi-LoRA pair (per-layer stacked adapter packs,
-        per-slot adapter ids): each decoder layer gets its own pack.
-        Returns ``(hidden, caches)``."""
-        if block_tables is None or span_starts is None:
+        """The paged serving forward.  With ``span_starts`` the unified
+        RAGGED step: per-slot spans (chunked prefill or decode tokens) at
+        positions ``[start, start+len)``, ``seq_lens`` carrying the span
+        lengths.  Without it the bucket-prefill/decode path: S == 1 with
+        ``seq_lens`` is one decode token per slot at position
+        ``seq_lens``; otherwise a prefill at positions ``arange(S)``,
+        ``seq_lens`` the prompt lengths.  ``lora`` is the multi-LoRA pair
+        (per-layer stacked adapter packs, per-slot adapter ids): each
+        decoder layer gets its own pack.  Returns ``(hidden, caches)``."""
+        if block_tables is None:
             raise NotImplementedError(
-                "only the paged ragged cached forward (block_tables and "
-                "span_starts) is ported; dense-cache and bucket-prefill "
-                "paths" + _TODO)
+                "only the paged cached forward (block_tables) is ported; "
+                "the dense-cache path" + _TODO)
         cfg = self.cfg
         if len(caches) != len(self.layers):
             raise ValueError(
@@ -411,11 +426,12 @@ class LlamaModel(nn.Module):
                 f"LoRA packs for {len(lora[0])} layers, the model has "
                 f"{len(self.layers)}")
         x = self.embed_tokens(input_ids)
+        from ..incubate.nn.functional import paged_positions
         s = input_ids.shape[1]
-        pos = span_starts.long()[:, None] + \
-            torch.arange(s, device=input_ids.device)[None, :]
+        pos = paged_positions(s, seq_lens, span_starts, input_ids.device)
         cos, sin = F.rope_cos_sin(s, cfg.head_dim, base=cfg.rope_theta,
-                                  dtype=x.dtype, position_ids=pos)
+                                  dtype=x.dtype, position_ids=pos,
+                                  device=x.device)
         new_caches = []
         for i, (layer, cache) in enumerate(zip(self.layers, caches)):
             x, cache = layer(x, cos, sin, cache=cache, seq_lens=seq_lens,

@@ -1,6 +1,6 @@
 from . import functional, quant
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layers import Embedding, Linear
+from .layers import Embedding, LayerNorm, Linear
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Embedding", "Linear", "functional", "quant"]
+           "Embedding", "LayerNorm", "Linear", "functional", "quant"]

@@ -1,7 +1,8 @@
 """The on-path parts of ``paddle_tpu.nn.functional``, in PyTorch.
 
-Same names, signatures and numerics as the reference: ``rms_norm`` in f32
-with the output cast to the input dtype, ``rope_cos_sin`` cast to the
+Same names, signatures and numerics as the reference: ``rms_norm`` and
+``layer_norm`` in f32 with the output cast to the input dtype, ``gelu``
+(the erf form, or the tanh form with ``approximate=True``), ``rope_cos_sin`` cast to the
 activation dtype, rotate-half ``apply_rotary_pos_emb``, the plain
 ``swiglu``/``linear``/``embedding``/``softmax``, ``cross_entropy`` in
 f32, and ``scaled_dot_product_attention``, which takes the flash-attention
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 from ..ops.cuda import flash_attention as _fa
 
 __all__ = ["apply_rotary_pos_emb", "cross_entropy", "embedding",
-           "flash_attention", "linear", "rms_norm", "rope_cos_sin",
+           "flash_attention", "gelu", "layer_norm", "linear", "rms_norm",
+           "rope_cos_sin",
            "scaled_dot_product_attention", "silu", "softmax", "swiglu"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -31,6 +33,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def silu(x):
     return F.silu(x)
+
+
+def gelu(x, approximate: bool = False):
+    """The exact erf GELU, or the tanh form with ``approximate=True``."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def swiglu(x, y=None):
@@ -62,6 +69,24 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
     out = xf * torch.rsqrt(var + epsilon)
     if weight is not None:
         out = out * weight.float()
+    return out.to(x.dtype)
+
+
+def layer_norm(x, normalized_shape=None, weight=None, bias=None,
+               epsilon: float = 1e-5):
+    """Normalise over the trailing ``len(normalized_shape)`` axes (the
+    last one when None) in f32, weight and bias applied in f32, output
+    cast to x.dtype (the reference's numerics)."""
+    n = len(normalized_shape) if normalized_shape else 1
+    dims = tuple(range(x.ndim - n, x.ndim))
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
     return out.to(x.dtype)
 
 

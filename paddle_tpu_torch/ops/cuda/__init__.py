@@ -7,13 +7,14 @@ version (run on CPU tensors) and its launch counter (``KERNEL.launches``;
 
 from typing import Dict
 
-from . import (flash_attention, fused_adamw, fused_mlp, fused_norm_qkv,
-               int4_matmul, int8_matmul, lora_matmul, mega_decode,
-               ragged_attention)
+from . import (flash_attention, fused_adamw, fused_gelu_mlp, fused_mlp,
+               fused_norm_qkv, int4_matmul, int8_matmul, lora_matmul,
+               mega_decode, paged_attention, ragged_attention)
 
 __all__ = ["KERNELS", "counts", "flash_attention", "fused_adamw",
-           "fused_mlp", "fused_norm_qkv", "int4_matmul", "int8_matmul",
-           "lora_matmul", "mega_decode", "ragged_attention"]
+           "fused_gelu_mlp", "fused_mlp", "fused_norm_qkv", "int4_matmul",
+           "int8_matmul", "lora_matmul", "mega_decode", "paged_attention",
+           "ragged_attention"]
 
 # every kernel's counter, by the name of the function it computes
 KERNELS = {
@@ -27,6 +28,8 @@ KERNELS = {
     "flash_attention_fwd": flash_attention.FWD,
     "flash_attention_bwd": flash_attention.BWD,
     "fused_adamw": fused_adamw.KERNEL,
+    "fused_gelu_mlp": fused_gelu_mlp.KERNEL,
+    "paged_attention": paged_attention.KERNEL,
 }
 
 

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fused_norm_qkv", "fused_mlp", "ragged_attention",
            "flash_attention", "fused_adamw", "int8_matmul", "int4_matmul",
-           "mega_decode", "lora_matmul")
+           "mega_decode", "lora_matmul", "fused_gelu_mlp",
+           "paged_attention")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -24,8 +24,9 @@ Step anatomy (one :meth:`step` call):
    full-prompt pages stay indexed in the prefix cache (evictable LRU),
    everything else returns to the free list.
 
-On the card each decoder layer of the step launches the three
-hand-written kernels (``ops/cuda``); under ``fused_ops="mega"`` the
+On the card each Llama decoder layer of the step launches the three
+hand-written kernels (``ops/cuda``), each GPT layer the ragged-attention
+and fused GELU-MLP kernels; under ``fused_ops="mega"`` the
 decode megakernel and the fused MLP kernel instead; with ``weight_quant``
 the projections and the LM head launch the int8/int4 matmul kernel
 instead of the fused QKV/MLP kernels; with ``lora`` (multi-LoRA) the
@@ -114,14 +115,19 @@ def _sample(logits, temps, key: int, seeds, emit):
 class Engine:
     """Continuous-batching serving engine (docs/SERVING.md).
 
-    ``model`` is a port ``LlamaForCausalLM`` whose parameters live on
-    ``device`` (default: the CUDA card; raises without one unless
-    ``device="cpu"``).  ``prefill_chunk``: span width C of the unified
+    ``model`` is a port ``LlamaForCausalLM`` or ``GPTForCausalLM`` (any
+    CausalLM whose decoder layers support the paged path) whose
+    parameters live on ``device`` (default: the CUDA card; raises
+    without one unless ``device="cpu"``).  ``prefill_chunk``: span width C of the unified
     step (default ``min(16, max_seq_len)``).  ``prefill_token_budget``
     caps the total prefill tokens scheduled per step (default unbounded).
     ``enable_prefix_caching``: hash-based sharing of page-aligned prompt
     prefixes across requests, with copy-on-write.  ``keep_finished``: how
     many finished requests stay queryable via :meth:`output_ids`.
+
+    A model lists in ``engine_options_not_ported`` the options the port
+    does not serve for it yet (GPT: ``weight_quant`` and ``lora``); they
+    raise ``NotImplementedError``.
 
     ``weight_quant``: ``"int8"``, ``"int4"`` or an ``nn.quant`` algo
     name swaps the model's Linears for weight-only quantized ones IN
@@ -178,6 +184,12 @@ class Engine:
             raise ValueError(
                 f"max_seq_len={max_seq_len} exceeds the model's "
                 f"max_position_embeddings={max_pos}")
+        todo = getattr(model, "engine_options_not_ported", ())
+        for opt, val in (("weight_quant", weight_quant), ("lora", lora)):
+            if val is not None and opt in todo:
+                raise NotImplementedError(
+                    f"Engine({opt}=...) for {type(model).__name__} is not "
+                    "ported yet (ROADMAP.md, queue 1)")
         if weight_quant is not None and lora is not None:
             # the stacked deltas target the float 2-D projection weights;
             # quantized layers keep int codes and separate scales
