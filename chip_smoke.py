@@ -9,7 +9,9 @@ Phases, each of which fails the run on its own (nothing is caught):
    paddle_tpu_torch/csrc for sm_90a, one nvcc per source, all at once
    (timed as set-up);
 2. kernels: holds each kernel against its plain PyTorch version on the
-   card, in bf16 and f32, at the serving path's llama2-7b shapes (T = B*C
+   card, in bf16 and f32 (the flash kernels also in f16, each flash row
+   with its achieved TFLOP/s, and two calls of each at the main shapes
+   bit-equal: no atomics), at the serving path's llama2-7b shapes (T = B*C
    = 128 tokens; ragged attention B=8, C=16, page 16, contexts up to 512),
    the training path's (flash attention B=2, S=2048, 32 heads of 128,
    causal; fused AdamW over the 4-layer llama2-7b parameter list, bf16
@@ -23,8 +25,9 @@ Phases, each of which fails the run on its own (nothing is caught):
    QKV and MLP kernels also at the training path's T = 4096; AdamW's
    moments and update held per element (the decay to 1/30 of itself); the
    MLP kernel's scratch bytes, error and time at T = 128 and T = 4096; and
-   the flash kernels off those shapes (causal Sq < Sk, ragged lengths,
-   head dims 18, 64, 80, 256); the int8 and int4 weight-only matmul
+   the flash kernels off those shapes in bf16, f32 and f16 (causal
+   Sq < Sk, ragged lengths and the 128-row tile's edges, head dims 18,
+   64, 80, 256, a GQA group of 8); the int8 and int4 weight-only matmul
    kernels at the four shapes of the quantized llama2-7b engine step (128
    rows through 4096x4096, 4096x11008 and 11008x4096 weights, 8 rows
    through the 4096x32000 LM head) with a cuBLAS yardstick over the
@@ -71,7 +74,8 @@ Phases, each of which fails the run on its own (nothing is caught):
    = backward = qkv = MLP = layers x steps, fused AdamW = steps), step
    ms, tokens/s, model TFLOP/s and its
    share of the bf16 peak, peak memory, and a 2-step torch.profiler
-   window (device busy/idle, kernel time by name);
+   window (device busy/idle, kernel time by name, the flash kernels' ms
+   per step);
 6. train cross-check: llama-350m-hd128 cut to 2 layers, f32, batch
    2 x 256, 2 steps, kernels on the card against the plain versions on
    the CPU from the same weights and batch: losses, moments and each
@@ -376,6 +380,9 @@ def flash_fwd_case(b, s, h, hkv, d, dtype, gen):
     (o, lse), (po, plse) = kern(), plain()
     err = max(compare("flash out", o, po, dtype),
               compare("flash lse", lse, plse, torch.float32))
+    o2, lse2 = kern()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), \
+        "flash forward differs between two calls"
     it = q.element_size()
     nbytes = it * 2 * (q.numel() + k.numel()) + 4 * b * h * s
     ops = 4.0 * b * h * d * causal_pairs(s, s)
@@ -397,8 +404,11 @@ def flash_bwd_case(b, s, h, hkv, d, dtype, gen):
                                            enable_gqa=hkv != h)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
+    got = kern()
     err = max(compare(f"flash d{n}", a, w, dtype)
-              for n, a, w in zip("qkv", kern(), plain()))
+              for n, a, w in zip("qkv", got, plain()))
+    assert all(torch.equal(a, b) for a, b in zip(got, kern())), \
+        "flash backward differs between two calls"
     it = q.element_size()
     # read q, k, v, out, dO, lse; write dq, dk, dv
     nbytes = it * (5 * q.numel() + 4 * k.numel()) + 4 * b * h * s
@@ -410,16 +420,21 @@ def flash_bwd_case(b, s, h, hkv, d, dtype, gen):
 def flash_edge_checks(gen):
     """The flash kernels against their plain versions off the main path's
     shapes: causal with Sq < Sk (a bottom-right offset), lengths that are
-    not tile multiples, GQA, and head dims other than 128: 64, 80 and 256
-    (16-byte loads, columns past the head dim zero) and 18 (element
-    loads)."""
+    not tile multiples (130: two rows past a 128-row tile; 200 / 328),
+    GQA (a group of 8 at head dim 64), and head dims other than 128: 64,
+    80 and 256 (16-byte loads, columns past the head dim zero; 256 in a
+    64-row tile at Sq 80 and 130) and 18 (element loads)."""
     errs = {}
     for b, sq, sk, h, hkv, d, causal in ((1, 100, 260, 4, 2, 128, True),
                                         (2, 70, 70, 2, 2, 64, False),
                                         (1, 90, 90, 4, 1, 80, True),
                                         (1, 80, 150, 2, 2, 256, True),
-                                        (2, 40, 40, 2, 1, 18, False)):
-        for dt in (torch.bfloat16, torch.float32):
+                                        (2, 40, 40, 2, 1, 18, False),
+                                        (1, 130, 130, 4, 2, 128, True),
+                                        (1, 200, 328, 4, 2, 128, True),
+                                        (1, 130, 130, 2, 1, 256, False),
+                                        (1, 256, 256, 8, 1, 64, True)):
+        for dt in (torch.bfloat16, torch.float32, torch.float16):
             q, do = rand((b, sq, h, d), dt, gen), rand((b, sq, h, d), dt, gen)
             k, v = rand((b, sk, hkv, d), dt, gen), rand((b, sk, hkv, d), dt,
                                                        gen)
@@ -998,7 +1013,9 @@ def kernel_phase():
     rows = []
     for geom, cases in shapes.items():
         for name, make in cases:
-            for dt in (torch.bfloat16, torch.float32):
+            flash = name.startswith("flash")
+            for dt in (torch.bfloat16, torch.float32) + (
+                    (torch.float16,) if flash else ()):
                 err, kern, plain, library, nbytes, ops = make(dt)
                 torch.cuda.synchronize()
                 bms, by = bound_ms(nbytes, ops, dt)
@@ -1008,6 +1025,8 @@ def kernel_phase():
                        "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                        "library_ms": cuda_ms(library), "bound_ms": bms,
                        "bound_by": by}
+                if flash:
+                    row["tflop_s"] = ops / row["ms"] * 1e-9
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del kern, plain, library
@@ -1945,10 +1964,14 @@ def profile_train(step, state, batch, n_steps=2):
                 ev.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    flash = {k: v / n_steps for k, v in by_name.items() if "flash_" in k}
     return {"steps": n_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy if busy else None,
             "idle_share": 1 - busy / wall_ms if busy else None,
-            "top_kernels_ms": [[k[:80], v] for k, v in top]}
+            "top_kernels_ms": [[k[:80], v] for k, v in top],
+            "flash_ms_per_step": sum(flash.values()),
+            "flash_kernels_ms_per_step": {k[:80]: v
+                                          for k, v in flash.items()}}
 
 
 def train_phase(preset="llama2-7b", layers=4, b=2, s=2048, steps=5):

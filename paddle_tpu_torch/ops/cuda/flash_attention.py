@@ -13,8 +13,8 @@ Contracts kept from the reference:
 - causal masking is bottom-right aligned (row i sees key j iff
   j <= i + Sk - Sq) and needs Sq <= Sk (both wrappers raise otherwise,
   on every device, as the reference's public entries do);
-- any head_dim up to 256, the reference's gate; the kernels take f32 and
-  bf16 storage and raise on a card tensor of another type;
+- any head_dim up to 256, the reference's gate; the kernels take f32,
+  bf16 and f16 storage and raise on a card tensor of another type;
 - GQA reads kv head ``h // (H // Hkv)``; K and V are never repeated;
 - the softmax statistic is the base-2 ``lse = log2(sum(exp2(s)))`` per
   row, (B, H, Sq) in f32, which ``flash_attention_with_lse`` returns and
@@ -45,6 +45,7 @@ BWD = Kernel("flash_attention", "pt_flash_bwd",
 LOG2E = math.log2(math.e)
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _scale(q, scale):
@@ -79,7 +80,8 @@ def plain(q, k, v, causal: bool = False, scale: Optional[float] = None):
 
 
 def _delta(out, dout, dlse):
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # (B,H,Sq)
+    # out promotes to f32 inside the product (exact): no f32 copy of it
+    delta = (dout.float() * out).sum(-1).transpose(1, 2)  # (B,H,Sq)
     if dlse is not None:
         delta = delta - dlse.float() * LOG2E
     return delta.contiguous()
@@ -120,8 +122,8 @@ def _reject_causal_overhang(q, k, causal):
 
 
 def _check(op, q, k, v):
-    check(op, q.dtype in (torch.float32, torch.bfloat16),
-          f"the kernels take float32 or bfloat16, got {q.dtype}")
+    check(op, q.dtype in _DTYPES,
+          f"the kernels take float32, bfloat16 or float16, got {q.dtype}")
     check_dense(op, q.dtype, q=q, k=k, v=v)
     b, sq, h, d = q.shape
     check(op, k.ndim == 4 and tuple(v.shape) == tuple(k.shape)
@@ -145,8 +147,8 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d,
-               float(scale * LOG2E), int(bool(causal)), dtype_code(q.dtype),
-               stream_of(q))
+               float(scale * LOG2E), int(bool(causal)),
+               dtype_code(q.dtype, _DTYPES), stream_of(q))
     return out, lse
 
 
@@ -170,7 +172,7 @@ def flash_bwd(q, k, v, out, lse, dout, scale: float, causal: bool,
                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h,
                k.shape[2], d, float(scale), float(scale * LOG2E),
-               int(bool(causal)), dtype_code(q.dtype), stream_of(q))
+               int(bool(causal)), dtype_code(q.dtype, _DTYPES), stream_of(q))
     return dq, dk, dv
 
 

@@ -12,7 +12,8 @@ card: ``chip_smoke.py`` holds each against its plain version there.)
 Tolerances: f32 rtol 1e-5 / atol 2e-5 -- the same arithmetic in another
 summation order; bf16 rtol/atol 2e-2 -- the same rounding points, where a
 probability rounded to bf16 at another running maximum moves an output by
-about one bf16 unit (2**-8 relative).
+about one bf16 unit (2**-8 relative); f16 rtol/atol 2e-3 -- the same
+argument with f16's finer unit (2**-11 relative, 8 times finer than bf16's).
 """
 
 import functools
@@ -29,14 +30,16 @@ import paddle_tpu.ops.pallas.flash_attention as JFA
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda import flash_attention as TFA
+from paddle_tpu_torch.ops.cuda._build import dtype_code
 
 B, S, H, HKV, D = 1, 64, 4, 2, 32       # GQA: two q heads per kv head
 TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
-       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-# (causal, dtype, query rows): the last case has Sq < Sk, so the causal
+       "bfloat16": dict(rtol=2e-2, atol=2e-2),
+       "float16": dict(rtol=2e-3, atol=2e-3)}
+# (causal, dtype, query rows): the fourth case has Sq < Sk, so the causal
 # mask is offset to the bottom right
 CASES = [(True, "float32", S), (False, "float32", S), (True, "bfloat16", S),
-         (True, "float32", S // 2)]
+         (True, "float32", S // 2), (True, "float16", S)]
 
 
 def _inputs(seed, sq=S):
@@ -175,3 +178,20 @@ def test_causal_overhang_raises_in_both_wrappers():
     lse = torch.zeros((B, H, S))
     with pytest.raises(ValueError, match="sq <= sk"):
         TFA.flash_bwd(tq, tk, tv, tq, lse, tdo, D ** -0.5, True)
+
+
+@pytest.mark.parametrize("dtype,code", [("float32", 0), ("bfloat16", 1),
+                                        ("float16", 2), ("float64", None)])
+def test_kernel_dtype_gate(dtype, code):
+    """The card path's checks admit f32, bf16 and f16 (C dtype codes 0, 1,
+    2) and raise on any other type, before a launch."""
+    q = torch.zeros((1, 16, 4, 64), dtype=getattr(torch, dtype))
+    k = torch.zeros((1, 16, 2, 64), dtype=q.dtype)
+    if code is None:
+        with pytest.raises(ValueError, match="the kernels take"):
+            TFA._check("flash_attention", q, k, k)
+        with pytest.raises(TypeError):
+            dtype_code(q.dtype, TFA._DTYPES)
+    else:
+        TFA._check("flash_attention", q, k, k)
+        assert dtype_code(q.dtype, TFA._DTYPES) == code
