@@ -24,7 +24,11 @@ Phases, each of which fails the run on its own (nothing is caught):
    torch.optim.AdamW(fused=True).step()) that the port never calls; the
    QKV and MLP kernels also at the training path's T = 4096; AdamW's
    moments and update held per element (the decay to 1/30 of itself); the
-   MLP kernel's scratch bytes, error and time at T = 128 and T = 4096; and
+   MLP kernels' scratch from their plan (h and the f32 split partials:
+   at most 16 MiB at T <= 257, none at T = 4096), error and time, SwiGLU
+   at T = 128 and 4096 and GELU at T = 1, 8, 128 and 257; both MLP
+   kernels at T = 1, 8, 63, 65 and 257 and the llama2-70b SwiGLU at T = 1
+   and 257, bf16 and f32, each MLP row's two calls bit-equal; and
    the flash kernels off those shapes in bf16, f32 and f16 (causal
    Sq < Sk, ragged lengths and the 128-row tile's edges, head dims 18,
    64, 80, 256, a GQA group of 8); the int8 and int4 weight-only matmul
@@ -58,7 +62,8 @@ Phases, each of which fails the run on its own (nothing is caught):
    tables from its allocator padded with the sentinel; the 8 prompts in
    one prefill call through the flash forward kernel, then 32 greedy
    decode calls of 32 paged-attention launches each; how many leading
-   tokens equal the gpt_engine streams is reported, not gated);
+   tokens equal the gpt_engine streams is reported, not gated), and 8
+   more decode calls under torch.profiler;
 4. cross-check: a 2-layer model at full llama2-7b width in f32, the same
    weights on both sides, kernels on the card against the plain versions
    on the CPU: greedy streams must be equal under the near-tie rule; the
@@ -81,12 +86,14 @@ Phases, each of which fails the run on its own (nothing is caught):
    the CPU from the same weights and batch: losses, moments and each
    parameter's update must agree (decay-only elements to 4 f32 units).
 
-Prints each measurement as a JSON line (kernel, mlp_scratch, flash_edges,
-quant_edges, engine, quant_engine, gpt_engine, gpt_paged, cross_check,
-quant_cross_check, gpt_cross_check, train, train_cross_check), the card's
-name and power limit,
-a {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
-line.  Exits non-zero without a CUDA device.
+Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
+flash_edges, quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
+cross_check, quant_cross_check, gpt_cross_check, train,
+train_cross_check), the card's name and power limit, a {"kernels": [...]}
+line, and last the {"ok": true, "device": {...}} line.  Device busy
+times are the union of the kernels' intervals in a profiler trace (the
+MLP kernels' dependent launches overlap the kernel before them).  Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -120,6 +127,8 @@ from paddle_tpu_torch.ops.cuda import int4_matmul as I4
 from paddle_tpu_torch.ops.cuda import int8_matmul as I8
 from paddle_tpu_torch.ops.cuda import lora_matmul as LM
 from paddle_tpu_torch.ops.cuda import mega_decode as MD
+from paddle_tpu_torch.ops.cuda.mlp_plan import (MAX_PARTIAL_BYTES, mlp_plan,
+                                                sm_count)
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
@@ -222,9 +231,32 @@ def cuda_ms(fn, iters: int = 5, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def union_ms(events) -> float:
+    """The time in ms during which at least one of ``events`` (profiler
+    device events) ran: overlapping kernels -- a dependent launch starts
+    before the kernel it waits for has ended -- count once."""
+    total, start, end = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def device_events(prof):
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms(fn, calls: int = 10) -> float:
-    """Device busy time of one ``fn()`` in ms: the kernels' durations in a
-    torch.profiler trace of ``calls`` calls, summed and divided by
+    """Device busy time of one ``fn()`` in ms: the union of the kernels'
+    intervals in a torch.profiler trace of ``calls`` calls, divided by
     ``calls`` -- where a call is shorter than the host's time to issue it,
     cuda_ms measures the host and this the card."""
     from torch.profiler import ProfilerActivity, profile
@@ -234,9 +266,7 @@ def device_ms(fn, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / calls / 1e3
+    return union_ms(device_events(prof)) / calls
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -296,14 +326,13 @@ def qkv_case(t, h, nq, nk, hd, dtype, gen):
 
 
 def mlp_case(t, h, i, dtype, gen):
-    x = rand((t, h), dtype, gen)
-    wg, wu = rand((h, i), dtype, gen, 0.02), rand((h, i), dtype, gen, 0.02)
-    wd = rand((i, h), dtype, gen, 0.02)
-    kern = lambda: FM.fused_swiglu_mlp(x, wg, wu, wd)
-    plain = lambda: FM.plain(x, wg, wu, wd)
-    library = lambda: (F.silu(x @ wg) * (x @ wu)) @ wd
-    nbytes = x.element_size() * (2 * t * h + 3 * h * i)
-    err = compare("mlp", kern(), plain(), dtype)
+    """The fused SwiGLU MLP at (T, H, I), two calls bit-equal.  Library:
+    cuBLAS x @ Wg, x @ Wu, silu, product, @ Wd."""
+    kern, plain, library = mlp_inputs("swiglu", t, h, i, dtype, gen)
+    nbytes = torch.finfo(dtype).bits // 8 * (2 * t * h + 3 * h * i)
+    got = kern()
+    err = compare("mlp", got, plain(), dtype)
+    assert torch.equal(got, kern()), f"mlp t={t}: two calls differ"
     return err, kern, plain, library, nbytes, 6.0 * t * h * i
 
 
@@ -552,32 +581,102 @@ def adamw_case(shapes, dtype, gen):
     return err, kern, plain, library, nbytes, 15.0 * n
 
 
+def split_i_partial_bytes(t, h, inter):
+    """The f32 partials of the former split-I design, for comparison: one
+    (Tpad, H) partial per I split, 128-wide chunks, splits capped at
+    32768 / Tpad rows (Tpad a multiple of 64)."""
+    tpad = -(-t // 64) * 64
+    chunks = inter // 128
+    cps = -(-chunks // max(1, 32768 // tpad))
+    return 4 * (-(-chunks // cps)) * tpad * h
+
+
+def plan_fields(kind, t, h, inter, dtype):
+    p = mlp_plan(t, h, inter, dtype, kind, sm_count(torch.device("cuda")))
+    return {"up_bn": p.up_bn, "splits": p.splits, "up_blocks": p.up_blocks,
+            "down_blocks": p.down_blocks, "h_bytes": p.h_bytes,
+            "partial_bytes": p.partial_bytes,
+            "scratch_bytes": p.scratch_bytes}
+
+
+def mlp_inputs(kind, t, h, inter, dtype, gen):
+    """(kernel, plain, library) closures of one MLP kind at (T, H, I)."""
+    x = rand((t, h), dtype, gen)
+    if kind == "swiglu":
+        wg, wu = (rand((h, inter), dtype, gen, 0.02) for _ in range(2))
+        wd = rand((inter, h), dtype, gen, 0.02)
+        return (lambda: FM.fused_swiglu_mlp(x, wg, wu, wd),
+                lambda: FM.plain(x, wg, wu, wd),
+                lambda: (F.silu(x @ wg) * (x @ wu)) @ wd)
+    w1, b1 = rand((h, inter), dtype, gen, 0.02), rand((inter,), dtype, gen,
+                                                      0.1)
+    w2, b2 = rand((inter, h), dtype, gen, 0.02), rand((h,), dtype, gen, 0.1)
+    return (lambda: FG.fused_gelu_mlp(x, w1, b1, w2, b2),
+            lambda: FG.plain(x, w1, b1, w2, b2),
+            lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1)), w2))
+
+
 def mlp_scratch_rows(gen):
-    """Scratch bytes, error against plain and time of the bf16 MLP
-    kernel at the serving and the training token counts (llama2-7b
-    widths)."""
+    """The bf16 MLP kernels' scratch from the plan (h in bf16, f32 split
+    partials), error against plain and time: SwiGLU at llama2-7b widths at
+    the serving and the training token counts, GELU at gpt3-6.7b widths at
+    T = 1, 8, 128 and 257.  The partials must stay within 16 MiB at T <=
+    257 and be 0 at T = 4096."""
     rows = []
-    for t in (128, 4096):
-        x = rand((t, 4096), torch.bfloat16, gen)
-        wg, wu = (rand((4096, 11008), torch.bfloat16, gen, 0.02)
-                  for _ in range(2))
-        wd = rand((11008, 4096), torch.bfloat16, gen, 0.02)
-        n = FM.KERNEL.helper("pt_fused_swiglu_mlp_scratch",
-                             [ctypes.c_int] * 3, ctypes.c_longlong)(
-            t, 4096, 11008)
-        row = {"t": t, "scratch_bytes": 4 * n,
-               "scratch_bytes_one_split_per_chunk": 4 * (11008 // 128)
-               * (-(-t // 64) * 64) * 4096,
-               "max_abs_err": compare(f"mlp t={t}",
-                                      FM.fused_swiglu_mlp(x, wg, wu, wd),
-                                      FM.plain(x, wg, wu, wd),
+    for kind, t, h, inter in (("swiglu", 128, 4096, 11008),
+                              ("swiglu", 4096, 4096, 11008),
+                              ("gelu", 1, 4096, 16384),
+                              ("gelu", 8, 4096, 16384),
+                              ("gelu", 128, 4096, 16384),
+                              ("gelu", 257, 4096, 16384)):
+        kern, plain, _ = mlp_inputs(kind, t, h, inter, torch.bfloat16, gen)
+        row = {"kind": kind, "t": t, "shape": [t, h, inter],
+               **plan_fields(kind, t, h, inter, torch.bfloat16),
+               "split_i_partial_bytes": split_i_partial_bytes(t, h, inter),
+               "max_abs_err": compare(f"{kind} t={t}", kern(), plain(),
                                       torch.bfloat16),
-               "ms": cuda_ms(lambda: FM.fused_swiglu_mlp(x, wg, wu, wd)),
-               "plain_ms": cuda_ms(lambda: FM.plain(x, wg, wu, wd))}
+               "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
+        if t <= 257:
+            assert row["partial_bytes"] <= MAX_PARTIAL_BYTES, row
+        if t == 4096:
+            assert row["partial_bytes"] == 0, row
         rows.append(row)
         log("mlp_scratch " + json.dumps(row))
-        del x, wg, wu, wd
+        del kern, plain
         torch.cuda.empty_cache()
+    return rows
+
+
+def mlp_edge_rows(gen):
+    """Both MLP kernels at token counts off the tiles (T = 1, 8, 63, 65,
+    257: one row, a partial 128-row tile, either side of 64, three row
+    tiles) and the llama2-70b SwiGLU at T = 1 and 257, bf16 and f32:
+    error against plain, two calls bit-equal, the plan, and the bf16
+    kernel's and library's times."""
+    rows = []
+    cases = [("swiglu", "llama2-7b", t, 4096, 11008)
+             for t in (1, 8, 63, 65, 257)]
+    cases += [("gelu", "gpt3-6.7b", t, 4096, 16384)
+              for t in (1, 8, 63, 65, 257)]
+    cases += [("swiglu", "llama2-70b", t, 8192, 28672) for t in (1, 257)]
+    for kind, geom, t, h, inter in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            kern, plain, library = mlp_inputs(kind, t, h, inter, dt, gen)
+            got = kern()
+            row = {"kind": kind, "geometry": geom, "shape": [t, h, inter],
+                   "dtype": str(dt).replace("torch.", ""),
+                   "max_abs_err": compare(f"{kind} {geom} t={t}", got,
+                                          plain(), dt),
+                   "tol": TOL[dt], "equal": bool(torch.equal(got, kern())),
+                   **plan_fields(kind, t, h, inter, dt)}
+            assert row["equal"], f"{kind} t={t}: two calls differ"
+            if dt == torch.bfloat16:
+                row["ms"] = cuda_ms(kern)
+                row["library_ms"] = cuda_ms(library)
+            rows.append(row)
+            log("mlp_edges " + json.dumps(row))
+            del kern, plain, library, got
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1027,11 +1126,14 @@ def kernel_phase():
                        "bound_by": by}
                 if flash:
                     row["tflop_s"] = ops / row["ms"] * 1e-9
+                if name == "fused_swiglu_mlp":
+                    row["device_ms"] = device_ms(kern)
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del kern, plain, library
                 torch.cuda.empty_cache()
     mlp_scratch_rows(tgen)
+    mlp_edge_rows(torch.Generator(device="cuda").manual_seed(5))
     flash_edge_checks(tgen)
     # the weight-only kernels draw from their own generator, so the
     # earlier cases keep their inputs
@@ -1113,17 +1215,40 @@ def profile_steps(eng, rng, n_steps: int = 8, adapters=(None,)):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
+    return profile_summary(prof, wall_ms, n_steps)
+
+
+# the fused MLP kernels' names in a trace: the up kernels of
+# csrc/fused_mlp.cu and csrc/fused_gelu_mlp.cu, and csrc/mlp_gemm.cuh's
+# down projection and split sum (namespace mlp)
+MLP_KERNEL_NAMES = ("up16_kernel", "up32_kernel", "mlp::")
+
+
+def device_ms_by_kernel(prof):
+    """Summed durations by kernel name, in ms (a dependent launch's
+    duration includes its wait for the kernel before it)."""
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    for ev in device_events(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+            ev.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def profile_summary(prof, wall_ms, n_steps, top=10):
+    """Device busy time (the union of the kernels' intervals), idle share,
+    the largest kernels by summed duration and the fused MLP kernels'
+    busy time of a trace over ``n_steps`` steps of ``wall_ms``; None where
+    the trace shows no device activity."""
+    events = device_events(prof)
+    busy = union_ms(events)
+    largest = sorted(device_ms_by_kernel(prof).items(),
+                     key=lambda kv: -kv[1])[:top]
+    mlp = [ev for ev in events if any(m in ev.name for m in MLP_KERNEL_NAMES)]
     return {"steps": n_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy if busy else None,
             "idle_share": 1 - busy / wall_ms if busy else None,
-            "top_kernels_ms": [[k[:80], v] for k, v in top]}
+            "top_kernels_ms": [[k[:80], v] for k, v in largest],
+            "mlp_ms_per_step": union_ms(mlp) / n_steps}
 
 
 def engine_phase():
@@ -1579,16 +1704,14 @@ def lora_cross_check_phase():
 # -- GPT phases --------------------------------------------------------------
 
 def gelu_case(t, h, f, dtype, gen):
-    """The fused GELU MLP at (T, H, F).  Library: torch.addmm -> F.gelu ->
-    torch.addmm (cuBLAS with the bias in the epilogue)."""
-    x = rand((t, h), dtype, gen)
-    w1, b1 = rand((h, f), dtype, gen, 0.02), rand((f,), dtype, gen, 0.1)
-    w2, b2 = rand((f, h), dtype, gen, 0.02), rand((h,), dtype, gen, 0.1)
-    kern = lambda: FG.fused_gelu_mlp(x, w1, b1, w2, b2)
-    plain = lambda: FG.plain(x, w1, b1, w2, b2)
-    library = lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1)), w2)
-    nbytes = x.element_size() * (2 * t * h + 2 * h * f + f + h)
-    err = compare("gelu_mlp", kern(), plain(), dtype)
+    """The fused GELU MLP at (T, H, F), two calls bit-equal.  Library:
+    torch.addmm -> F.gelu -> torch.addmm (cuBLAS with the bias in the
+    epilogue)."""
+    kern, plain, library = mlp_inputs("gelu", t, h, f, dtype, gen)
+    nbytes = torch.finfo(dtype).bits // 8 * (2 * t * h + 2 * h * f + f + h)
+    got = kern()
+    err = compare("gelu_mlp", got, plain(), dtype)
+    assert torch.equal(got, kern()), f"gelu_mlp t={t}: two calls differ"
     return err, kern, plain, library, nbytes, 4.0 * t * h * f
 
 
@@ -1648,13 +1771,10 @@ def gpt_kernel_rows(gen, rng):
                             ("gpt3-6.7b T=1", (1, 4096, 16384)),
                             ("gpt3-6.7b T=257", (257, 4096, 16384))):
         for dt in (torch.bfloat16, torch.float32):
-            scratch = 4 * FG.KERNEL.helper(
-                "pt_fused_gelu_mlp_scratch", [ctypes.c_int] * 3,
-                ctypes.c_longlong)(t, h, f)
             rows.append(timed_row("fused_gelu_mlp", geom, dt,
                                   gelu_case(t, h, f, dt, gen),
                                   {"shape": [t, h, f],
-                                   "scratch_bytes": scratch}))
+                                   **plan_fields("gelu", t, h, f, dt)}))
             torch.cuda.empty_cache()
     # a card tensor the kernel cannot take raises, never falls back
     for h, f, dt in ((64, 256, torch.bfloat16), (128, 512, torch.float16)):
@@ -1679,7 +1799,8 @@ def gpt_kernel_rows(gen, rng):
     return rows
 
 
-def paged_generate(model, prompts, steps, device, forced=None, page=16):
+def paged_generate(model, prompts, steps, device, forced=None, page=16,
+                   profile_calls=0):
     """The bucket-prefill/decode path through ``model`` with pools from a
     ``PagedKVCache`` and tables from its allocator, padded with the
     out-of-range sentinel: one prefill call over all prompts (bucket of
@@ -1688,20 +1809,23 @@ def paged_generate(model, prompts, steps, device, forced=None, page=16):
     f32 logits of each call on the CPU ((B, V) at each slot's last
     position), the tokens, the wall time of the prefill and of the
     decode calls (synchronised on the card), and the kernel launches of
-    each part."""
+    each part.  With ``profile_calls``, that many further greedy decode
+    calls run after the counted ones under torch.profiler ("profile":
+    device busy and idle, the largest kernels, the MLP kernels' ms per
+    call)."""
     cfg = model.cfg
     kvh = getattr(cfg, "num_key_value_heads", None) or \
         cfg.num_attention_heads
     b = len(prompts)
     plens = np.array([len(p) for p in prompts], np.int32)
     s = -(-int(plens.max()) // 16) * 16
-    mb = -(-(int(plens.max()) + steps) // page)
+    mb = -(-(int(plens.max()) + steps + profile_calls) // page)
     kv = PagedKVCache(cfg.num_hidden_layers, b * mb, page, kvh,
                       cfg.head_dim, dtype=next(model.parameters()).dtype,
                       device=device)
     tables = np.full((b, mb), kv.oob_block, np.int32)
     for i, n in enumerate(plens):
-        need = -(-(int(n) + steps) // page)
+        need = -(-(int(n) + steps + profile_calls) // page)
         tables[i, :need] = kv.allocator.allocate(need)
     ids = np.zeros((b, s), np.int64)
     for i, p in enumerate(prompts):
@@ -1739,10 +1863,27 @@ def paged_generate(model, prompts, steps, device, forced=None, page=16):
         sync()
         decode_s = time.perf_counter() - t1
         launches.append(counts(dev.type))
+        prof = None
+        if profile_calls:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t2 = time.perf_counter()
+                for _ in range(profile_calls):
+                    hidden, caches = model.model(lg.argmax(-1)[:, None],
+                                                 caches=caches,
+                                                 seq_lens=lens,
+                                                 block_tables=tt)
+                    lg = model.logits(hidden[:, 0]).float()
+                    lens = lens + 1
+                sync()
+                prof_ms = (time.perf_counter() - t2) * 1e3
     out = {"logits": [x.cpu() for x in logits],
            "tokens": torch.stack(toks, 1).cpu().numpy(),
            "prefill_s": prefill_s, "decode_s": decode_s,
            "launches": launches, "bucket": s, "plens": plens.tolist()}
+    if prof is not None:
+        out["profile"] = profile_summary(prof, prof_ms, profile_calls)
     return out
 
 
@@ -1793,15 +1934,17 @@ def gpt_engine_phase():
     return res, model, reqs, out
 
 
-def gpt_paged_phase(model, reqs, streams, steps=32):
+def gpt_paged_phase(model, reqs, streams, steps=32, profile_calls=8):
     """The gpt_engine model on the bucket-prefill/decode path: the 8
     prompts of gpt_engine in one prefill call (the flash forward kernel,
     32 launches), then ``steps`` greedy decode calls (32 paged-attention
-    launches each).  How many leading tokens of each request equal its
-    gpt_engine stream is reported, not gated (bf16)."""
+    launches each), then ``profile_calls`` more under torch.profiler.
+    How many leading tokens of each request equal its gpt_engine stream
+    is reported, not gated (bf16)."""
     rids = sorted(reqs)
     layers = model.cfg.num_hidden_layers
-    run = paged_generate(model, [reqs[r][0] for r in rids], steps, "cuda")
+    run = paged_generate(model, [reqs[r][0] for r in rids], steps, "cuda",
+                         profile_calls=profile_calls)
     pre, dec = run["launches"]
     want_pre = {"flash_attention_fwd": layers, "fused_gelu_mlp": layers,
                 "paged_attention": 0, "ragged_paged_attention": 0}
@@ -1827,7 +1970,8 @@ def gpt_paged_phase(model, reqs, streams, steps=32):
            "decode_tok_s": b * steps / run["decode_s"],
            "launches_prefill": {k: pre[k] for k in want_pre},
            "launches_decode": {k: dec[k] for k in want_dec},
-           "leading_equal_vs_engine": agree}
+           "leading_equal_vs_engine": agree,
+           "decode_profile": run["profile"]}
     log("gpt_paged " + json.dumps(res))
     return res
 
@@ -1957,18 +2101,9 @@ def profile_train(step, state, batch, n_steps=2):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_name = device_ms_by_kernel(prof)
     flash = {k: v / n_steps for k, v in by_name.items() if "flash_" in k}
-    return {"steps": n_steps, "wall_ms": wall_ms,
-            "device_busy_ms": busy if busy else None,
-            "idle_share": 1 - busy / wall_ms if busy else None,
-            "top_kernels_ms": [[k[:80], v] for k, v in top],
+    return {**profile_summary(prof, wall_ms, n_steps, top=12),
             "flash_ms_per_step": sum(flash.values()),
             "flash_kernels_ms_per_step": {k[:80]: v
                                           for k, v in flash.items()}}

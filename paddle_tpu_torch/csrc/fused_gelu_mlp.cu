@@ -6,37 +6,38 @@
 // `_fused_gelu_mlp_ref`: x @ W1 accumulates in f32 and b1 is added in f32,
 // the exact erf GELU runs in f32 and h is rounded to the storage type,
 // h @ W2 accumulates in f32, b2 is added in f32 and the result is rounded
-// once.  The biases arrive as f32 (the wrapper widens them, exactly).
+// once.  The biases arrive in the storage type or in f32 and are widened
+// (exactly) where they are added.
 //
-// Bound on an H100: at serving token counts (T = 128) the two H x F weight
-// matrices are the bytes, ~64 operations per weight byte in bf16, so the
-// weight read bounds it.  bf16 runs its products on the tensor cores
-// (WMMA, mma.sync 16x16x16, f32 accumulation); f32 runs them on the SIMT
-// units so it stays full f32, and is bound by their rate.
+// Bound on an H100 (the function's): at serving token counts (T <= 128)
+// the two H x F weight matrices are the bytes, ~64 operations per weight
+// byte in bf16 at T = 128 and fewer below, so the weight read bounds it
+// (0.081 ms at gpt3-6.7b, F = 16384); at large T the 4 T H F operations.
 //
-// Scratch.  Each F split writes an f32 (Tpad, H) partial.  At serving
-// token counts every split is one 128-wide F chunk, so at gpt3-6.7b's
-// F = 16384, T = 128 the partials are 128 x 128 x 4096 x 4 B = 268 MB,
-// as large as the bf16 weights, and their write and read-back are more
-// traffic than the weights.  The splits are capped as in
-// csrc/mlp_tiles.cuh.  Shrinking the scratch (fewer, longer splits at
-// serving T) is later work.
+// Design (csrc/fused_mlp.cu's, with one up-projection and two biases; the
+// GEMM main loops, the down projection, its split-K rule and the split
+// sum are csrc/mlp_gemm.cuh).  The TPU kernel keeps the (T, F)
+// intermediate in VMEM; here it goes through device memory in the storage
+// type, where the contract rounds it anyway (4 MB at T = 128):
+//   up:   block (128 token rows, 128 or 64 columns of F: the plan takes
+//         the wider band unless it leaves SMs idle, so 64 at T <= 128 and
+//         F = 16384, 256 blocks two to an SM) accumulates x @ W1 in m64
+//         wgmma accumulators, adds b1 and runs the erf GELU in registers
+//         in f32, rounds once and stores h with 16-byte stores;
+//   down: out = h @ W2 + b2 in 128 x 128 tiles, the contraction split
+//         only where the tiles are too few (5 splits at T <= 128, H =
+//         4096); with one split the epilogue adds b2 and rounds, with more
+//         the fixed-order split sum does.
+// 3-stage cp.async rings of 64-deep steps feed swizzled tiles to wgmma;
+// rows past T are zero-filled by the copies.  The down kernel and the
+// split sum are dependent launches that start while the kernel before
+// them finishes (csrc/mlp_gemm.cuh).  No atomics.
 //
-// Design (csrc/fused_mlp.cu's, with one up-projection and two biases;
-// the tile geometry, the split plan, the down projection and pass 2 are
-// csrc/mlp_tiles.cuh).  The TPU kernel carries an f32 (T, H) accumulator
-// across a sequential F axis; on the H100 blocks run in parallel with
-// nothing carried between them, so the F axis is split across blocks:
-//   pass 1: block (token tile of 64, F split) computes, chunk by chunk of
-//           128, h = gelu(x @ W1[:, chunk] + b1[chunk]) into shared memory
-//           -- the (T, F) intermediate never goes to device memory -- and
-//           multiplies it by that chunk's 128 rows of W2, adding into its
-//           f32 partial (splits, Tpad, H);
-//   pass 2: a small kernel sums the partials in a fixed split order, adds
-//           b2 once and rounds.  No atomics: the same sum order every run.
-#include "mlp_tiles.cuh"
-
-#include <type_traits>
+// f32 runs the same plan on the SIMT units (64 x 128 tiles, full f32).
+//
+// One C call issues two or three kernels on the caller's stream; it
+// neither allocates nor synchronises.
+#include "mlp_gemm.cuh"
 
 namespace {
 
@@ -47,226 +48,107 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// ---- f32: SIMT units ------------------------------------------------------
-
-constexpr size_t kSimtSmem =
-    sizeof(float) * (kBKs * kBT + kBKs * kBI + kBI * kBT);
-
-__global__ void __launch_bounds__(kThreads)
-gelu_partial_simt(const float* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  float* __restrict__ partial, int t, int tpad, int h,
-                  int f, int cps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);   // [kBKs][kBT]
-  float* ws = xs + kBKs * kBT;                  // [kBKs][kBI]
-  float* hs = ws + kBKs * kBI;                  // [kBI][kBT]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const int t0 = blockIdx.x * kBT;
-  const int split = blockIdx.y;
-  float* prow = partial + (size_t)split * tpad * h;
-  for (int ch = 0; ch < cps; ++ch) {
-  const int i0 = (split * cps + ch) * kBI;
-  if (i0 >= f) break;
-
-  // 1. x @ W1 for this token tile and F chunk
-  float a1[kRM][8];
+// h (t, f) = round(gelu(x @ w1 + b1)); grid (row tiles, f / BN).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+up16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+            const void* __restrict__ b1, int b1_bf16,
+            bf16* __restrict__ hout, int t, int h, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  sm90::launch_dependents();   // the down kernel may start its weights
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  float acc[1][BN / 2];
 #pragma unroll
-  for (int r = 0; r < kRM; ++r)
+  for (int i = 0; i < BN / 2; ++i) acc[0][i] = 0.f;
+  const bf16* const w[1] = {w1};
+  gemm_tiles<1, BN>(sm, x, h, t, m0, w, f, n0, 0, h / kBK, acc);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) a1[r][c] = 0.f;
-  for (int k0 = 0; k0 < h; k0 += kBKs) {
-    for (int e = tid; e < kBT * kBKs; e += kThreads) {
-      const int r = e / kBKs, kk = e % kBKs;
-      const int row = t0 + r;
-      xs[kk * kBT + r] = row < t ? x[(size_t)row * h + k0 + kk] : 0.f;
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float bias = bias_at(b1, b1_bf16, n0 + acc_col(j, e));
+      acc[0][4 * j + e] = gelu_erf(acc[0][4 * j + e] + bias);
+      acc[0][4 * j + 2 + e] = gelu_erf(acc[0][4 * j + 2 + e] + bias);
     }
-    for (int e = tid; e < kBKs * kBI; e += kThreads) {
-      const int kk = e / kBI, c = e % kBI;
-      ws[e] = w1[(size_t)(k0 + kk) * f + i0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBKs; ++kk) {
-      float a[kRM], bw[8];
-#pragma unroll
-      for (int r = 0; r < kRM; ++r) a[r] = xs[kk * kBT + ty * kRM + r];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) bw[c] = ws[kk * kBI + col_of(tx, c)];
-#pragma unroll
-      for (int r = 0; r < kRM; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) a1[r][c] += a[r] * bw[c];
-    }
-    __syncthreads();
-  }
-
-  // 2. h = gelu(x @ W1 + b1) stays in shared memory
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float bias = b1[i0 + col_of(tx, c)];
-#pragma unroll
-    for (int r = 0; r < kRM; ++r)
-      hs[col_of(tx, c) * kBT + ty * kRM + r] = gelu_erf(a1[r][c] + bias);
-  }
-  __syncthreads();
-
-  // 3. h chunk times W2[i0:i0+kBI, :] -> f32 partial (reuses the W1
-  //    stage)
-  down_partial_simt(hs, ws, w2, prow, t, t0, h, i0, ch == 0);
-  }   // chunks of this split
+  store_rows<BN>(hout, f, t, m0, n0, sm, acc[0]);
 }
 
-// ---- bf16: tensor cores -------------------------------------------------
-
-constexpr size_t kTcSmem = sizeof(bf16) * (kBT * kLdA + kBK * kLdB +
-                                           kBT * kLdH) +
-                           sizeof(float) * kBT * kLdC;
-
-__global__ void __launch_bounds__(kThreads)
-gelu_partial_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                const float* __restrict__ b1, const bf16* __restrict__ w2,
-                float* __restrict__ partial, int t, int tpad, int h, int f,
-                int cps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);   // [kBT][kLdA]
-  bf16* bw = as + kBT * kLdA;                 // [kBK][kLdB]
-  bf16* hs = bw + kBK * kLdB;                 // [kBT][kLdH]
-  float* cs = reinterpret_cast<float*>(hs + kBT * kLdH);   // [kBT][kLdC]
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;     // 32-row x 32-column tile
-  const int t0 = blockIdx.x * kBT;
-  const int split = blockIdx.y;
-  float* prow = partial + (size_t)split * tpad * h;
-  for (int ch = 0; ch < cps; ++ch) {
-  const int i0 = (split * cps + ch) * kBI;
-  if (i0 >= f) break;
-
-  // 1. x @ W1 for this token tile and F chunk
-  FragC a1[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(a1[i][j], 0.f);
-  for (int k0 = 0; k0 < h; k0 += kBK) {
-    {   // x tile: kBT x kBK = 256 vectors of 8, one per thread
-      const int r = tid / (kBK / 8), v = tid % (kBK / 8);
-      const int row = t0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row < t)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)row * h + k0 +
-                                              v * 8);
-      *reinterpret_cast<uint4*>(as + r * kLdA + v * 8) = val;
-    }
-    load_w_tile(bw, w1, f, k0, i0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a[2];
-      FragB b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * kLdA + kk,
-                               kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bw + kk * kLdB + wn * 32 + j * 16,
-                               kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(a1[i][j], a[i], b[j], a1[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // 2. h = round(gelu(x @ W1 + b1)): staged as f32 (a fragment's element
-  //    layout does not name its column, so the bias is added here), then
-  //    rounded to bf16 into the shared h chunk
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kLdC + wn * 32 +
-                                  j * 16,
-                              a1[i][j], kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kBT * kBI; e += kThreads) {
-    const int r = e / kBI, c = e % kBI;
-    hs[r * kLdH + c] =
-        pt::from_f<bf16>(gelu_erf(cs[r * kLdC + c] + b1[i0 + c]));
-  }
-  __syncthreads();
-
-  // 3. h chunk times W2[i0:i0+kBI, :] added into the f32 partial
-  //    (reuses the W1 stage)
-  down_partial_tc(hs, bw, w2, prow, t0, h, i0, ch == 0);
-  }   // chunks of this split
-}
-
-template <typename T>
-int launch(const void* x, const void* w1, const float* b1, const void* w2,
-           const float* b2, void* partial, void* out, int t, int h, int f,
-           cudaStream_t stream) {
-  const int cps = chunks_per_split(t, f);
-  const int splits = splits_of(t, f), tpad = tpad_of(t);
-  dim3 grid(tpad / kBT, splits);
-  float* part = static_cast<float*>(partial);
-  cudaError_t e;
-  if constexpr (std::is_same<T, bf16>::value) {
-    e = cudaFuncSetAttribute(gelu_partial_tc,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kTcSmem);
-    if (e != cudaSuccess) return (int)e;
-    gelu_partial_tc<<<grid, kThreads, kTcSmem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
-        static_cast<const bf16*>(w2), part, t, tpad, h, f, cps);
-  } else {
-    e = cudaFuncSetAttribute(gelu_partial_simt,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSimtSmem);
-    if (e != cudaSuccess) return (int)e;
-    gelu_partial_simt<<<grid, kThreads, kSimtSmem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1), b1,
-        static_cast<const float*>(w2), part, t, tpad, h, f, cps);
-  }
-  e = cudaGetLastError();
+template <int BN>
+int up16(const void* x, const void* w1, const void* b1, int b1_bf16,
+         void* hbuf, int t, int h, int f, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<1, BN>();
+  cudaError_t e = allow_smem(up16_kernel<BN>, smem);
   if (e != cudaSuccess) return (int)e;
-  sum_splits<T>(part, b2, out, splits, t, h, stream);
-  return 0;
+  dim3 grid((t + kBM - 1) / kBM, f / BN);
+  up16_kernel<BN><<<grid, kThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, b1_bf16,
+      static_cast<bf16*>(hbuf), t, h, f);
+  return (int)cudaGetLastError();
+}
+
+// The f32 up projection: grid (row tiles of 64, f / 128).
+__global__ void __launch_bounds__(kThreads)
+up32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+            const void* __restrict__ b1, int b1_bf16,
+            float* __restrict__ hout, int t, int h, int f) {
+  __shared__ float sm[simt::smem_floats<1>()];
+  const int m0 = blockIdx.x * simt::kBM, n0 = blockIdx.y * simt::kBN;
+  float acc[1][simt::kRM][8] = {};
+  const float* const w[1] = {w1};
+  simt::gemm<1>(sm, x, h, t, m0, w, f, n0, 0, h, acc);
+  const int tx = threadIdx.x % simt::kTX, ty = threadIdx.x / simt::kTX;
+#pragma unroll
+  for (int r = 0; r < simt::kRM; ++r) {
+    const int row = m0 + ty * simt::kRM + r;
+    if (row >= t) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = n0 + simt::col_of(tx, c);
+      hout[(size_t)row * f + col] =
+          gelu_erf(acc[0][r][c] + bias_at(b1, b1_bf16, col));
+    }
+  }
 }
 
 }  // namespace
 
-// x (t, h); w1 (h, f); b1 (f,) f32; w2 (f, h); b2 (h,) f32 -> out (t, h),
-// 16-byte aligned.  `partial` is f32 scratch of
-// pt_fused_gelu_mlp_scratch() elements.  Needs h % 128 == 0 and
-// f % 128 == 0.
+// x (t, h); w1 (h, f); b1 (f,); w2 (f, h); b2 (h,) -> out (t, h), x, w1,
+// w2 and out 16-byte aligned and of `dtype` (PT_F32 or PT_BF16), the
+// biases of `bias_dtype` (PT_F32, or `dtype`).
+// hbuf: scratch of t x f values of `dtype`; partial: f32 scratch of
+// splits x t x h values (unused with one split).  up_bn is the plan's up
+// tile width (64 or 128 for bf16, 128 for f32) and splits its down split
+// count; a plan this source cannot run returns cudaErrorInvalidValue
+// before any launch.
 extern "C" int pt_fused_gelu_mlp(const void* x, const void* w1,
                                  const void* b1, const void* w2,
-                                 const void* b2, void* partial, void* out,
-                                 int t, int h, int f, int dtype,
+                                 const void* b2, void* hbuf, void* partial,
+                                 void* out, int t, int h, int f, int dtype,
+                                 int bias_dtype, int up_bn, int splits,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fb1 = static_cast<const float*>(b1);
-  const float* fb2 = static_cast<const float*>(b2);
+  const int kps = steps_per_split(t, h, f, splits);
+  const bool bf = dtype == PT_BF16;
+  const int bias16 = bias_dtype == PT_BF16;
+  if (kps == 0 || hbuf == nullptr || (dtype != PT_F32 && !bf) ||
+      (bias_dtype != PT_F32 && bias_dtype != dtype) ||
+      (bf ? up_bn != 64 && up_bn != 128 : up_bn != simt::kBN))
+    return (int)cudaErrorInvalidValue;
   int rc;
-  if (dtype == PT_F32) {
-    rc = launch<float>(x, w1, fb1, w2, fb2, partial, out, t, h, f, s);
-  } else if (dtype == PT_BF16) {
-    rc = launch<bf16>(x, w1, fb1, w2, fb2, partial, out, t, h, f, s);
+  if (bf) {
+    rc = up_bn == 128 ? up16<128>(x, w1, b1, bias16, hbuf, t, h, f, s)
+                      : up16<64>(x, w1, b1, bias16, hbuf, t, h, f, s);
   } else {
-    rc = (int)cudaErrorInvalidValue;
+    dim3 grid((t + simt::kBM - 1) / simt::kBM, f / simt::kBN);
+    up32_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w1), b1,
+        bias16, static_cast<float*>(hbuf), t, h, f);
+    rc = (int)cudaGetLastError();
   }
   if (rc) return rc;
-  return (int)cudaGetLastError();
-}
-
-// f32 scratch elements `pt_fused_gelu_mlp` needs for these sizes.
-extern "C" long long pt_fused_gelu_mlp_scratch(int t, int h, int f) {
-  return (long long)splits_of(t, f) * tpad_of(t) * h;
+  return bf ? down<bf16>(hbuf, w2, b2, bias16, partial, out, t, h, f,
+                         splits, kps, s)
+            : down<float>(hbuf, w2, b2, bias16, partial, out, t, h, f,
+                          splits, kps, s);
 }

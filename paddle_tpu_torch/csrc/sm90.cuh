@@ -67,6 +67,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Programmatic dependent launch: a kernel launched with the
+// programmatic-serialization attribute may start before the previous
+// kernel on its stream has finished; grid_dependency_wait() blocks until
+// that kernel has completed and its writes are visible (a no-op without
+// the attribute), and launch_dependents() lets the next such kernel start
+// once every block of this one has called it or exited.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -158,11 +171,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // pack(d[8kk+4], ..+5), pack(d[8kk+6], ..+7)}.
 //
 // mma_ss<T, N>: d (+)= A (64 x 16, K-major, shared) . B (16 x N, K-major,
-// shared); mma_rs<T, N>: d (+)= A (registers) . B (16 x N, MN-major,
-// shared).  `acc` 0 overwrites d.
+// shared); mma_ss_mn<T, N>: the same with B MN-major (a row-major (K, N)
+// weight tile, as the MLP kernels read theirs); mma_rs<T, N>: d (+)= A
+// (registers) . B (16 x N, MN-major, shared).  `acc` 0 overwrites d.
 template <typename T, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int acc);
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int acc);
 template <typename T, int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b,
@@ -199,6 +216,18 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
         : DOPS                                                            \
         : "l"(a), "l"(b), "r"(acc));                                      \
   }
+// The same with B MN-major (trans-b 1).
+#define PT_WGMMA_SS_MN(T, TY, N, DREGS, DOPS, IA, IB, IS)                 \
+  template <>                                                             \
+  __device__ __forceinline__ void mma_ss_mn<T, N>(                        \
+      float(&d)[N / 2], uint64_t a, uint64_t b, int acc) {                \
+    asm volatile(                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                 \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "   \
+        DREGS ", %" #IA ", %" #IB ", p, 1, 1, 0, 1;\n}\n"                 \
+        : DOPS                                                            \
+        : "l"(a), "l"(b), "r"(acc));                                      \
+  }
 // A0..A3: the A registers' operand numbers; B is MN-major (trans-b 1).
 #define PT_WGMMA_RS(T, TY, N, DREGS, DOPS, A0, A1, A2, A3, IB, IS)        \
   template <>                                                             \
@@ -219,6 +248,8 @@ PT_WGMMA_SS(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66)
 PT_WGMMA_SS(__half, "f16", 32, PT_R16, PT_D16, 16, 17, 18)
 PT_WGMMA_SS(__half, "f16", 64, PT_R32, PT_D32, 32, 33, 34)
 PT_WGMMA_SS(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66)
+PT_WGMMA_SS_MN(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34)
+PT_WGMMA_SS_MN(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66)
 PT_WGMMA_RS(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36, 37)
 PT_WGMMA_RS(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68,
             69)
@@ -226,6 +257,7 @@ PT_WGMMA_RS(__half, "f16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36, 37)
 PT_WGMMA_RS(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68, 69)
 
 #undef PT_WGMMA_RS
+#undef PT_WGMMA_SS_MN
 #undef PT_WGMMA_SS
 #undef PT_R64
 #undef PT_R32

@@ -21,9 +21,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -31,6 +28,7 @@ import torch
 
 from . import _build
 from . import flash_attention as FA
+from ._compare import build_tree, card, cuda_ms as _cuda_ms
 
 SHAPES = {"llama2-7b-train": (2, 2048, 32, 32, 128),
           "llama2-70b-gqa": (1, 2048, 64, 8, 128)}
@@ -38,39 +36,11 @@ DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def _library(name: str, csrc: Path):
-    out = _build.BUILD_DIR / "compare" / name
-    if out.exists():
-        shutil.rmtree(out)
-    out.mkdir(parents=True)
-    for f in csrc.glob("*.cuh"):
-        shutil.copy(f, out / f.name)
-    shutil.copy(csrc / "flash_attention.cu", out / "flash_attention.cu")
-    lib = out / "libflash_attention.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(out / "flash_attention.cu")], check=True)
-    cdll = ctypes.CDLL(str(lib))
+    cdll = build_tree(name, csrc, ["flash_attention"])["flash_attention"]
     for sym, kern in (("pt_flash_fwd", FA.FWD), ("pt_flash_bwd", FA.BWD)):
         fn = getattr(cdll, sym)
         fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
-    cdll.pt_error_string.argtypes = [ctypes.c_int]
-    cdll.pt_error_string.restype = ctypes.c_char_p
     return cdll
-
-
-def _cuda_ms(fn, iters: int = 5, reps: int = 5) -> float:
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
 
 
 def _use(cdll) -> None:
@@ -100,9 +70,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compare_flash: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     print(f"card: {smi}", flush=True)
     libs = {"this": _library("this", _build.CSRC),
             "other": _library("other", args.other.resolve())}

@@ -2,10 +2,14 @@
 
 The kernel is ``paddle_tpu_torch/csrc/fused_gelu_mlp.cu`` (CUDA C++ for
 sm_90a); it replaces the TPU kernel ``paddle_tpu/ops/pallas/fused_mlp.py``
-``fused_gelu_mlp``.  Its source note gives the bound and the design:
-blocks split the F axis and write f32 partials, which a second pass sums
-in a fixed order before adding b2 once.  :func:`plain` is the same
-function in plain PyTorch, the twin of the JAX ``_fused_gelu_mlp_ref``.
+``fused_gelu_mlp``.  Its source note gives the bound and the design: an
+up GEMM (wgmma, 128-row tiles, 3-stage cp.async ring) writes
+``h = gelu(x @ W1 + b1)`` in x's dtype, and a down GEMM adds ``h @ W2``
+and b2, splitting its contraction only where its tiles are too few to
+fill the card (:mod:`.mlp_plan`; b2 then joins in the fixed-order split
+sum).  The wrapper allocates ``h`` and the partials from the plan.
+:func:`plain` is the same function in plain PyTorch, the twin of the JAX
+``_fused_gelu_mlp_ref``.
 """
 
 from __future__ import annotations
@@ -17,12 +21,13 @@ import torch.nn.functional as F
 
 from ._build import Kernel, dtype_code, stream_of
 from ._common import check, check_dense, dot_f32, on_cuda
+from .mlp_plan import check_plan, mlp_plan, sm_count
 
 __all__ = ["KERNEL", "fused_gelu_mlp", "plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("fused_gelu_mlp", "pt_fused_gelu_mlp",
-                [_P] * 7 + [_I] * 4 + [_P])
+                [_P] * 8 + [_I] * 7 + [_P])
 
 
 def plain(x, w1, b1, w2, b2):
@@ -36,9 +41,10 @@ def plain(x, w1, b1, w2, b2):
 
 def fused_gelu_mlp(x, w1, b1, w2, b2):
     """x (T, H); w1 (H, F); b1 (F,); w2 (F, H); b2 (H,) -> (T, H) in
-    x.dtype.  CUDA tensors launch the kernel (the biases widened to f32,
-    exactly) or raise, naming the shape or dtype it cannot take (H and F
-    multiples of 128, f32 or bf16); CPU tensors run :func:`plain`."""
+    x.dtype.  CUDA tensors launch the kernel (biases of x.dtype as they
+    are, others widened to f32, exactly; the kernel widens them where it
+    adds them) or raise, naming the shape or dtype it cannot take (H and
+    F multiples of 128, f32 or bf16); CPU tensors run :func:`plain`."""
     op = "fused_gelu_mlp"
     if not on_cuda(op, x, w1, b1, w2, b2, kernel=KERNEL):
         return plain(x, w1, b1, w2, b2)
@@ -53,15 +59,22 @@ def fused_gelu_mlp(x, w1, b1, w2, b2):
     check(op, tuple(w1.shape) == (h, f) and tuple(w2.shape) == (f, h)
           and tuple(b1.shape) == (f,) and tuple(b2.shape) == (h,),
           "shape mismatch")
-    b1f = b1.float().contiguous()
-    b2f = b2.float().contiguous()
+    if b1.dtype == b2.dtype == x.dtype:
+        b1c, b2c, bias_code = b1.contiguous(), b2.contiguous(), code
+    else:
+        b1c, b2c = b1.float().contiguous(), b2.float().contiguous()
+        bias_code = dtype_code(torch.float32)
     out = torch.empty((t, h), dtype=x.dtype, device=x.device)
     if t == 0:
         return out
-    n = KERNEL.helper("pt_fused_gelu_mlp_scratch", [_I, _I, _I],
-                      ctypes.c_longlong)(t, h, f)
-    partial = torch.empty((n,), dtype=torch.float32, device=x.device)
-    KERNEL.launch(x.data_ptr(), w1.data_ptr(), b1f.data_ptr(),
-                  w2.data_ptr(), b2f.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), t, h, f, code, stream_of(x))
+    plan = mlp_plan(t, h, f, x.dtype, "gelu", sm_count(x.device))
+    check_plan(op, plan)
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8,
+                          device=x.device)
+    base = scratch.data_ptr()
+    KERNEL.launch(x.data_ptr(), w1.data_ptr(), b1c.data_ptr(),
+                  w2.data_ptr(), b2c.data_ptr(), base,
+                  base + plan.partial_offset if plan.splits > 1 else None,
+                  out.data_ptr(), t, h, f, code, bias_code, plan.up_bn,
+                  plan.splits, stream_of(x))
     return out
