@@ -28,14 +28,19 @@ Phases, each of which fails the run on its own (nothing is caught):
    at most 16 MiB at T <= 257, none at T = 4096), error and time, SwiGLU
    at T = 128 and 4096 and GELU at T = 1, 8, 128 and 257; both MLP
    kernels at T = 1, 8, 63, 65 and 257 and the llama2-70b SwiGLU at T = 1
-   and 257, bf16 and f32, each MLP row's two calls bit-equal; and
+   and 257, bf16 and f32, each MLP row's two calls bit-equal; the QKV
+   kernel at T = 1, 8, 63, 65 and 257, head dim 64, the llama2-70b GQA
+   geometry at T = 1 and 257 and a hidden size of 4128 (qkv_edges lines,
+   bf16 and f32, two calls bit-equal) and the QKV and int8 plans at the
+   main shapes (qkv_plan, int8_plan lines); and
    the flash kernels off those shapes in bf16, f32 and f16 (causal
    Sq < Sk, ragged lengths and the 128-row tile's edges, head dims 18,
    64, 80, 256, a GQA group of 8); the int8 and int4 weight-only matmul
    kernels at the four shapes of the quantized llama2-7b engine step (128
    rows through 4096x4096, 4096x11008 and 11008x4096 weights, 8 rows
-   through the 4096x32000 LM head) with a cuBLAS yardstick over the
-   widened weight, each kind's sum over one step's 225 calls, and their
+   through the 4096x32000 LM head; int8 also in f16) with a cuBLAS
+   yardstick over the widened weight, each kind's sum over one step's 225
+   calls, and their
    edge cases (M 1/8/257, K 100/102, N 200, f16, an unaligned x, every
    int8 code and every packed int4 byte); the fused GELU MLP at the
    gpt3-6.7b engine step (T = 128, H 4096, F 16384), gpt3-13b's H 5120 /
@@ -87,10 +92,12 @@ Phases, each of which fails the run on its own (nothing is caught):
    parameter's update must agree (decay-only elements to 4 f32 units).
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
-flash_edges, quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
+qkv_edges, qkv_plan, int8_plan, flash_edges, quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
 cross_check, quant_cross_check, gpt_cross_check, train,
 train_cross_check), the card's name and power limit, a {"kernels": [...]}
-line, and last the {"ok": true, "device": {...}} line.  Device busy
+line, and last the {"ok": true, "device": {...}} line.  The QKV, SwiGLU
+and int8 kernel rows carry `device_ms`, the device busy time of one call,
+beside the CUDA-event `ms`.  Device busy
 times are the union of the kernels' intervals in a profiler trace (the
 MLP kernels' dependent launches overlap the kernel before them).  Exits
 non-zero without a CUDA device.
@@ -118,6 +125,8 @@ from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import quant as Q
 from paddle_tpu_torch.ops.cuda import KERNELS as CUDA_KERNELS
 from paddle_tpu_torch.ops.cuda import _build, counts
+from paddle_tpu_torch.ops.cuda._compare import (device_events, device_ms,
+                                                union_ms)
 from paddle_tpu_torch.ops.cuda import flash_attention as FA
 from paddle_tpu_torch.ops.cuda import fused_adamw as AD
 from paddle_tpu_torch.ops.cuda import fused_gelu_mlp as FG
@@ -127,8 +136,10 @@ from paddle_tpu_torch.ops.cuda import int4_matmul as I4
 from paddle_tpu_torch.ops.cuda import int8_matmul as I8
 from paddle_tpu_torch.ops.cuda import lora_matmul as LM
 from paddle_tpu_torch.ops.cuda import mega_decode as MD
+from paddle_tpu_torch.ops.cuda.int8_plan import int8_plan
 from paddle_tpu_torch.ops.cuda.mlp_plan import (MAX_PARTIAL_BYTES, mlp_plan,
                                                 sm_count)
+from paddle_tpu_torch.ops.cuda.qkv_plan import qkv_plan
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
@@ -229,44 +240,6 @@ def cuda_ms(fn, iters: int = 5, reps: int = 5, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
-
-
-def union_ms(events) -> float:
-    """The time in ms during which at least one of ``events`` (profiler
-    device events) ran: overlapping kernels -- a dependent launch starts
-    before the kernel it waits for has ended -- count once."""
-    total, start, end = 0.0, None, None
-    for s, e in sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in events):
-        if end is None or s > end:
-            if end is not None:
-                total += end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    if end is not None:
-        total += end - start
-    return total / 1e3
-
-
-def device_events(prof):
-    return [ev for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def device_ms(fn, calls: int = 10) -> float:
-    """Device busy time of one ``fn()`` in ms: the union of the kernels'
-    intervals in a torch.profiler trace of ``calls`` calls, divided by
-    ``calls`` -- where a call is shorter than the host's time to issue it,
-    cuda_ms measures the host and this the card."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return union_ms(device_events(prof)) / calls
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -680,6 +653,79 @@ def mlp_edge_rows(gen):
     return rows
 
 
+QKV_GEOMS = {"llama2-7b": (4096, 4096, 4096, 128),
+             "llama2-70b-gqa": (8192, 8192, 1024, 128)}
+
+
+def qkv_plan_fields(t, h, nq, nk, hd, dtype):
+    p = qkv_plan(t, h, nq, nk, hd, dtype, sm_count(torch.device("cuda")))
+    return {"tiles": p.tiles, "splits": p.splits, "blocks": p.blocks,
+            "nx_bytes": p.nx_bytes, "partial_bytes": p.partial_bytes,
+            "scratch_bytes": p.scratch_bytes}
+
+
+def qkv_edge_rows(gen):
+    """The QKV kernel off the main shapes, bf16 and f32: llama2-7b at T =
+    1, 8, 63, 65 and 257 (one row, a partial tile, either side of 64,
+    three row tiles), head dim 64 at T = 128, llama2-70b GQA at T = 1 and
+    257, and a hidden size of 4128 (a 32-wide contraction tail): error
+    against plain, two calls bit-equal, the plan, and the bf16 kernel's
+    and library's times."""
+    cases = [("llama2-7b", t, *QKV_GEOMS["llama2-7b"])
+             for t in (1, 8, 63, 65, 257)]
+    cases += [("llama2-7b hd64", 128, 4096, 4096, 4096, 64)]
+    cases += [("llama2-70b-gqa", t, *QKV_GEOMS["llama2-70b-gqa"])
+              for t in (1, 257)]
+    cases += [("h4128", 128, 4128, 4096, 4096, 128)]
+    rows = []
+    for geom, t, h, nq, nk, hd in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            err, kern, plain, library, _, _ = qkv_case(t, h, nq, nk, hd, dt,
+                                                       gen)
+            a, b = kern(), kern()
+            row = {"geometry": geom, "shape": [t, h, nq, nk, hd],
+                   "dtype": str(dt).replace("torch.", ""),
+                   "max_abs_err": err, "tol": TOL[dt],
+                   "equal": all(torch.equal(x, y) for x, y in zip(a, b)),
+                   **qkv_plan_fields(t, h, nq, nk, hd, dt)}
+            assert row["equal"], f"qkv {geom} t={t}: two calls differ"
+            if dt == torch.bfloat16:
+                row["ms"] = cuda_ms(kern)
+                row["library_ms"] = cuda_ms(library)
+            rows.append(row)
+            log("qkv_edges " + json.dumps(row))
+            del kern, plain, library, a, b
+            torch.cuda.empty_cache()
+    return rows
+
+
+def plan_lines():
+    """The QKV and int8 plans at the main path's shapes: tiles, splits and
+    scratch bytes (the f32 partials at most 16 MiB, none at T = 4096 or
+    at the LM head)."""
+    qkv = {}
+    for geom, t in (("llama2-7b", 128), ("llama2-70b-gqa", 128),
+                    ("llama2-7b", 4096)):
+        for dt in (torch.bfloat16, torch.float32):
+            f = qkv_plan_fields(t, *QKV_GEOMS[geom], dt)
+            assert f["partial_bytes"] <= MAX_PARTIAL_BYTES, (geom, t, f)
+            if t == 4096:
+                assert f["partial_bytes"] == 0, f
+            qkv[f"{geom} t={t} {str(dt).replace('torch.', '')}"] = f
+    log("qkv_plan " + json.dumps(qkv))
+    i8 = {}
+    for m, k, n, _ in QUANT_STEP:
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            p = int8_plan(m, k, n, dt, sm_count(torch.device("cuda")))
+            if dt != torch.float32:
+                assert p.partial_bytes <= MAX_PARTIAL_BYTES, p
+            i8[f"{m}x{k}x{n} {str(dt).replace('torch.', '')}"] = {
+                "tiles": p.tiles, "splits": p.splits, "blocks": p.blocks,
+                "partial_bytes": p.partial_bytes}
+    log("int8_plan " + json.dumps(i8))
+    return qkv, i8
+
+
 def quant_case(kind, m, k, n, dtype, gen):
     """A weight-only matmul of a random (K, N) weight quantized on the
     card, x (M, K) in ``dtype``.  Library: torch.matmul over the weight
@@ -719,13 +765,22 @@ def int8pack_ms(x, q, s):
     return cuda_ms(lambda: fn(x, wt, s))
 
 
+def step_sum(part, key):
+    """A per-call measurement summed over one step's calls, or None where
+    a row has none (the profiler recorded no device activity)."""
+    if any(r[key] is None for r in part):
+        return None
+    return sum(r[key] * r["calls_per_step"] for r in part)
+
+
 def quant_kernel_rows(gen):
     """int8 and int4, bf16 and f32, at the weight-only engine step's four
     shapes; then each kind's sum over one step's 225 calls."""
     rows = []
     for kind in QUANT:
         for m, k, n, calls in QUANT_STEP:
-            for dt in (torch.bfloat16, torch.float32):
+            for dt in (torch.bfloat16, torch.float32) + (
+                    (torch.float16,) if kind == "int8" else ()):
                 err, kern, plain, library, nbytes, ops, ins = quant_case(
                     kind, m, k, n, dt, gen)
                 torch.cuda.synchronize()
@@ -739,6 +794,8 @@ def quant_kernel_rows(gen):
                        "bound_by": by,
                        "int8pack_ms": int8pack_ms(*ins)
                        if kind == "int8" else None}
+                if kind == "int8":
+                    row["device_ms"] = device_ms(kern)
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del kern, plain, library, ins
@@ -750,8 +807,9 @@ def quant_kernel_rows(gen):
                 "dtype": "bfloat16",
                 "calls_per_step": sum(r["calls_per_step"] for r in part),
                 "max_abs_err": max(r["max_abs_err"] for r in part)}
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            step[key] = sum(r[key] * r["calls_per_step"] for r in part)
+        for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+            if key in part[0]:
+                step[key] = step_sum(part, key)
         by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
                        if r["bound_by"] == "bytes")
         step["bound_by"] = "bytes" if by_bytes >= step["bound_ms"] / 2 \
@@ -767,8 +825,9 @@ def quant_edge_checks(gen):
     N = 200 (element loads, partial tiles), in bf16, f16 and f32; aligned
     shapes with K and N tails inside a tile (K = 4160, N = 272); an x
     that starts 2 bytes past a 16-byte boundary; and every byte value:
-    an identity x through all 256 int8 codes, and through all 256 packed
-    bytes, must give the codes and the sign-extended nibbles exactly."""
+    an identity x (bf16, f16, f32) through all 256 int8 codes, and
+    through all 256 packed bytes, must give the codes and the
+    sign-extended nibbles exactly."""
     errs = {}
     for kind in QUANT:
         name, fn, plain_fn = QUANT[kind]
@@ -790,7 +849,7 @@ def quant_edge_checks(gen):
             f"{kind} unaligned", fn(x, q, s), plain_fn(x, q, s),
             torch.bfloat16)
     every = torch.arange(-128, 128, dtype=torch.int8, device="cuda")
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
         codes = every.view(16, 16)
         got = I8.int8_matmul(torch.eye(16, dtype=dt, device="cuda"), codes,
                              torch.ones(16, device="cuda"))
@@ -1057,7 +1116,7 @@ def new_kernel_rows(gen, rng):
             "max_abs_err": max(r["max_abs_err"] for r in part)}
     for key in ("ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms"):
-        step[key] = sum(r[key] * r["calls_per_step"] for r in part)
+        step[key] = step_sum(part, key)
     by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
                    if r["bound_by"] == "bytes")
     step["bound_by"] = "bytes" if by_bytes >= step["bound_ms"] / 2 \
@@ -1126,7 +1185,7 @@ def kernel_phase():
                        "bound_by": by}
                 if flash:
                     row["tflop_s"] = ops / row["ms"] * 1e-9
-                if name == "fused_swiglu_mlp":
+                if name in ("fused_swiglu_mlp", "fused_rms_rope_qkv"):
                     row["device_ms"] = device_ms(kern)
                 rows.append(row)
                 log("kernel " + json.dumps(row))
@@ -1134,6 +1193,8 @@ def kernel_phase():
                 torch.cuda.empty_cache()
     mlp_scratch_rows(tgen)
     mlp_edge_rows(torch.Generator(device="cuda").manual_seed(5))
+    qkv_edge_rows(torch.Generator(device="cuda").manual_seed(6))
+    plan_lines()
     flash_edge_checks(tgen)
     # the weight-only kernels draw from their own generator, so the
     # earlier cases keep their inputs

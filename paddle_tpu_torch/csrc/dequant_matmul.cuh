@@ -1,6 +1,8 @@
 // Weight-only dequant GEMM, out = round(x @ widen(W) * scale[n]), for
-// sm_90a: the one kernel behind int8_matmul.cu (W int8, (K, N)) and
-// int4_matmul.cu (W two int4 nibbles per byte, (K/2, N)).
+// sm_90a: the kernel behind int4_matmul.cu (W two int4 nibbles per byte,
+// (K/2, N)) in every type, and behind int8_matmul.cu (W int8, (K, N)) for
+// f32 x only -- 16-bit int8 runs on wgmma in dequant_gemm.cuh, which
+// borrows `load16` from here.
 //
 // Contract (paddle_tpu/ops/pallas/int8_matmul.py and int4_matmul.py):
 // x (M, K) in f32, bf16 or f16; the widened weight values are small
@@ -388,10 +390,11 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   out[i] = pt::from_f<T>(s * scale[i % n]);
 }
 
+// the product split as `sp` says (pass 2 only with sp.splits > 1)
 template <typename T, bool kInt4>
-int run(const void* x, const void* w, const void* scale, void* out,
-        void* partial, int m, int k, int n, cudaStream_t stream) {
-  const Split sp = split_of(m, k, n, Chunk<T>::kBK);
+int run_split(const void* x, const void* w, const void* scale, void* out,
+              void* partial, int m, int k, int n, Split sp,
+              cudaStream_t stream) {
   if (sp.splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN, sp.splits);
   dequant_matmul_kernel<T, kInt4><<<grid, kThreads, 0, stream>>>(
@@ -405,6 +408,13 @@ int run(const void* x, const void* w, const void* scale, void* out,
       static_cast<const float*>(partial), static_cast<const float*>(scale),
       static_cast<T*>(out), sp.splits, m, n);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kInt4>
+int run(const void* x, const void* w, const void* scale, void* out,
+        void* partial, int m, int k, int n, cudaStream_t stream) {
+  return run_split<T, kInt4>(x, w, scale, out, partial, m, k, n,
+                             split_of(m, k, n, Chunk<T>::kBK), stream);
 }
 
 // x (m, k) of `dtype`; w (k, n) int8, or (k/2, n) packed for kInt4;

@@ -3,6 +3,11 @@
 // tensor cores, f32 on the SIMT units), the down projection with its
 // split-K epilogue, the fixed-order sum of the splits and the check of the
 // plan that the Python wrapper chose (paddle_tpu_torch/ops/cuda/mlp_plan.py).
+// The fused QKV kernel (csrc/fused_norm_qkv.cu) runs its product on
+// `gemm_tiles` too (with EDGE: a contraction tail and half-width column
+// tiles) and stores through `store_rows`; the int8 GEMM
+// (csrc/dequant_gemm.cuh) borrows the accumulator layout and the
+// dependent launch.
 //
 // Both MLPs run as two GEMMs over one intermediate h in device memory:
 //   up:   h = act(x @ W1 [+ b1]) -> (T, I) in x's dtype, rounded once;
@@ -64,14 +69,17 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // WAIT_A, A is the previous kernel's output: the first weight stages are
 // requested before grid_dependency_wait, A only after it.  Ends with
 // every product retired; the ring may then be reused after a block
-// barrier.
-template <int NW, int BN, bool WAIT_A = false>
+// barrier.  With EDGE, contraction indices >= kdim (a multiple of 8) and
+// weight columns >= n0 + ncols (a multiple of 8) are zero-filled by the
+// copies instead of read.
+template <int NW, int BN, bool WAIT_A = false, bool EDGE = false>
 __device__ __forceinline__ void gemm_tiles(unsigned char* sm,
                                            const bf16* __restrict__ a,
                                            int lda, int t, int m0,
                                            const bf16* const (&b)[NW],
                                            int ldb, int n0, int kb, int ke,
-                                           float (&acc)[NW][BN / 2]) {
+                                           float (&acc)[NW][BN / 2],
+                                           int kdim = 0, int ncols = BN) {
   constexpr int ST = kStages;
   constexpr uint32_t AB = kBM * kBK * 2, BB = kBK * BN * 2,
                      SB = AB + NW * BB;
@@ -94,7 +102,8 @@ __device__ __forceinline__ void gemm_tiles(unsigned char* sm,
     const int k0 = (kb + j) * kBK;
 #pragma unroll
     for (int i = 0; i < kBM / 32; ++i) {
-      const bool in = m0 + ra + 32 * i < t;
+      const bool in =
+          m0 + ra + 32 * i < t && (!EDGE || k0 + ca < kdim);
       sm90::cp_async16(st + da + i * 32 * 128,
                        in ? pa + (size_t)i * 32 * lda + k0 : a, in ? 16 : 0);
     }
@@ -105,9 +114,14 @@ __device__ __forceinline__ void gemm_tiles(unsigned char* sm,
 #pragma unroll
     for (int w = 0; w < NW; ++w)
 #pragma unroll
-      for (int i = 0; i < kBK / RSTEP; ++i)
+      for (int i = 0; i < kBK / RSTEP; ++i) {
+        const bool in =
+            !EDGE || (k0 + i * RSTEP + rb < kdim && cb < ncols);
         sm90::cp_async16(st + AB + w * BB + db + i * RSTEP * 128,
-                         b[w] + bofs + (size_t)(k0 + i * RSTEP) * ldb, 16);
+                         in ? b[w] + bofs + (size_t)(k0 + i * RSTEP) * ldb
+                            : b[w],
+                         in ? 16 : 0);
+      }
   };
 
   // Steps 0 .. ST - 2 in flight, one commit group each (group 0 also
@@ -169,14 +183,15 @@ __device__ __forceinline__ int acc_row(int i) {
 }
 
 // The block's kBM x BN values v (the accumulator layout), rounded to bf16,
-// into rows [m0, min(m0 + kBM, t)) and columns [n0, n0 + BN) of dst (row
-// stride ld), through a swizzled tile at sm and 16-byte stores.  Called
-// by every thread after the ring's last use.
+// into rows [m0, min(m0 + kBM, t)) and columns [n0, n0 + ncols) of dst
+// (row stride ld; ncols a multiple of 8), through a swizzled tile at sm
+// and 16-byte stores.  Called by every thread after the ring's last use.
 template <int BN>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, int ld,
                                            int t, int m0, int n0,
                                            unsigned char* sm,
-                                           const float (&v)[BN / 2]) {
+                                           const float (&v)[BN / 2],
+                                           int ncols = BN) {
   __syncthreads();   // every warpgroup is done with the ring
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
@@ -188,7 +203,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, int ld,
   __syncthreads();
   for (int e = threadIdx.x; e < kBM * BN / 8; e += kThreads) {
     const int r = e / (BN / 8), c = e % (BN / 8) * 8;
-    if (m0 + r < t)
+    if (m0 + r < t && c < ncols)
       *reinterpret_cast<uint4*>(dst + (size_t)(m0 + r) * ld + n0 + c) =
           *reinterpret_cast<const uint4*>(sm + sm90::swz<kBM>(r, c));
   }

@@ -250,6 +250,7 @@ PT_WGMMA_SS(__half, "f16", 64, PT_R32, PT_D32, 32, 33, 34)
 PT_WGMMA_SS(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66)
 PT_WGMMA_SS_MN(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34)
 PT_WGMMA_SS_MN(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66)
+PT_WGMMA_SS_MN(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66)
 PT_WGMMA_RS(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36, 37)
 PT_WGMMA_RS(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68,
             69)

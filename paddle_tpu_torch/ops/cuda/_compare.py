@@ -1,6 +1,7 @@
 """Pieces shared by the parent-vs-change timing tools (``compare_flash``,
-``compare_mlp``): build another tree's kernel sources beside this one's,
-time a call with CUDA events, and name the card."""
+``compare_mlp``, ``compare_qkv_quant``): build another tree's kernel
+sources beside this one's, time a call with CUDA events or as device busy
+time in a profiler trace, and name the card."""
 
 from __future__ import annotations
 
@@ -61,6 +62,50 @@ def cuda_ms(fn, iters: int = 5, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def union_ms(events) -> float:
+    """The time in ms during which at least one of ``events`` (profiler
+    device events) ran: overlapping kernels -- a dependent launch starts
+    before the kernel it waits for has ended -- count once."""
+    total, start, end = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if end is None or s > end:
+            if end is not None:
+                total += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
+def device_events(prof):
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, calls: int = 10, tries: int = 3):
+    """Device busy time of one ``fn()`` in ms: the union of the kernels'
+    intervals in a torch.profiler trace of ``calls`` calls, divided by
+    ``calls`` -- where a call is shorter than the host's time to issue it,
+    cuda_ms measures the host and this the card.  The profiler now and
+    then records no device activity at all; such a trace is taken again,
+    up to ``tries`` times, and None is returned if none shows any."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = union_ms(device_events(prof))
+        if busy > 0:
+            return busy / calls
+    return None
 
 
 def card() -> str:

@@ -3,8 +3,15 @@
 The kernel is ``paddle_tpu_torch/csrc/fused_norm_qkv.cu`` (CUDA C++ for
 sm_90a); it replaces the TPU kernel
 ``paddle_tpu/ops/pallas/fused_norm_qkv.py`` ``fused_rms_rope_qkv``.  Its
-source note gives the bound and the design.  :func:`plain` is the same
-function in plain PyTorch, the twin of the JAX
+source note gives the bound and the design.  In bf16 one call is a norm
+kernel that writes ``nx`` (the contract's normed, rounded x) to a (T, H)
+bf16 scratch, then a wgmma GEMM over 128 x 128 tiles of [q | k | v] with
+RoPE applied in registers; where those tiles are too few to fill the card
+the contraction is split and a third kernel adds the f32 partials in a
+fixed order before the roundings and RoPE.  :mod:`.qkv_plan` chooses the
+split; the wrapper allocates nx and the partials from the plan as one
+scratch tensor.  f32 runs one SIMT kernel and needs no scratch.
+:func:`plain` is the same function in plain PyTorch, the twin of the JAX
 ``_fused_rms_rope_qkv_ref``: the CPU runs it, and the card holds the
 kernel against it.
 """
@@ -17,12 +24,14 @@ import torch
 
 from ._build import Kernel, dtype_code, stream_of
 from ._common import check, check_dense, dot_f32, on_cuda
+from .mlp_plan import sm_count
+from .qkv_plan import check_plan, qkv_plan
 
 __all__ = ["KERNEL", "fused_rms_rope_qkv", "plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("fused_norm_qkv", "pt_fused_rms_rope_qkv",
-                [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _P])
+                [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _I, _P])
 
 
 def plain(x, norm_weight, w_q, w_k, w_v, cos, sin, head_dim: int,
@@ -73,14 +82,21 @@ def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
           and tuple(w_v.shape) == (h, nk)
           and tuple(cos.shape) == (t, head_dim)
           and tuple(sin.shape) == (t, head_dim), "shape mismatch")
+    code = dtype_code(x.dtype)
     q = torch.empty((t, nq), dtype=x.dtype, device=x.device)
     k = torch.empty((t, nk), dtype=x.dtype, device=x.device)
     v = torch.empty((t, nk), dtype=x.dtype, device=x.device)
     if t == 0:
         return q, k, v
+    plan = qkv_plan(t, h, nq, nk, head_dim, x.dtype, sm_count(x.device))
+    check_plan(op, plan)
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8,
+                          device=x.device) if plan.scratch_bytes else None
+    base = None if scratch is None else scratch.data_ptr()
     KERNEL.launch(x.data_ptr(), norm_weight.data_ptr(), w_q.data_ptr(),
                   w_k.data_ptr(), w_v.data_ptr(), cos.data_ptr(),
-                  sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  t, h, nq, nk, head_dim, float(eps), dtype_code(x.dtype),
-                  stream_of(x))
+                  sin.data_ptr(), base if plan.nx_bytes else None,
+                  base + plan.partial_offset if plan.splits > 1 else None,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), t, h, nq, nk,
+                  head_dim, float(eps), code, plan.splits, stream_of(x))
     return q, k, v

@@ -21,9 +21,9 @@ import ctypes
 
 import torch
 
-from ._build import Kernel
+from ._build import Kernel, stream_of
 from ._common import dot_f32, on_cuda
-from .int8_matmul import launch
+from .int8_matmul import check_quant
 
 __all__ = ["KERNEL", "int4_matmul", "plain", "unpack_int4"]
 
@@ -61,4 +61,16 @@ def int4_matmul(x, packed, scale):
         raise ValueError(f"scale {tuple(scale.shape)} != ({n},)")
     if not on_cuda("int4_matmul", x, packed, scale, kernel=KERNEL):
         return plain(x, packed, scale)
-    return launch(KERNEL, "int4_matmul", x, packed, scale, k, n)
+    code = check_quant("int4_matmul", x, packed, scale)
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    elems = KERNEL.helper(KERNEL.symbol + "_scratch", [_I] * 4,
+                          ctypes.c_longlong)(m, k, n, code)
+    partial = torch.empty((elems,), dtype=torch.float32,
+                          device=x.device) if elems else None
+    KERNEL.launch(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), None if partial is None
+                  else partial.data_ptr(), m, k, n, code, stream_of(x))
+    return out

@@ -26,7 +26,7 @@ import functools
 import torch
 
 __all__ = ["MAX_PARTIAL_BYTES", "H100_SMS", "MlpPlan", "mlp_plan",
-           "check_plan", "sm_count"]
+           "check_plan", "sm_count", "split_count"]
 
 H100_SMS = 132
 MAX_PARTIAL_BYTES = 16 << 20
@@ -96,6 +96,22 @@ class MlpPlan:
         return self.partial_offset + self.partial_bytes
 
 
+def split_count(tiles: int, k_steps: int, split_bytes: int,
+                sms: int = H100_SMS) -> int:
+    """The contraction split of a GEMM with ``tiles`` output tiles and
+    ``k_steps`` contraction steps, each split's f32 partial
+    ``split_bytes``: 1 where the tiles fill the SMs, else
+    ``ceil(sms / tiles)`` capped by the steps and by
+    :data:`MAX_PARTIAL_BYTES` of partials, trimmed so that no split is
+    left empty.  The MLP, QKV and int8 plans share it."""
+    if tiles >= sms or k_steps <= 1:
+        return 1
+    splits = max(1, min(-(-sms // tiles), k_steps,
+                        MAX_PARTIAL_BYTES // split_bytes))
+    per = -(-k_steps // splits)
+    return -(-k_steps // per)
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"mlp_plan: {what}")
@@ -121,14 +137,7 @@ def mlp_plan(t: int, h: int, inter: int, dtype: torch.dtype,
     if len(_UP_BN[(kind, dtype)]) > 1 and rows * (inter // up_bn) < sms:
         up_bn = _UP_BN[(kind, dtype)][1]   # the wider band leaves SMs idle
     down_bn = 128
-    tiles = rows * (h // down_bn)
-    splits = 1
-    if tiles < sms:
-        k_steps = inter // _BK
-        cap = MAX_PARTIAL_BYTES // (4 * t * h)
-        splits = max(1, min(-(-sms // tiles), k_steps, cap))
-        per = -(-k_steps // splits)
-        splits = -(-k_steps // per)         # none left empty
+    splits = split_count(rows * (h // down_bn), inter // _BK, 4 * t * h, sms)
     return MlpPlan(kind, dtype, t, h, inter, bm, up_bn, down_bn, splits)
 
 
