@@ -31,16 +31,18 @@ Phases, each of which fails the run on its own (nothing is caught):
    and 257, bf16 and f32, each MLP row's two calls bit-equal; the QKV
    kernel at T = 1, 8, 63, 65 and 257, head dim 64, the llama2-70b GQA
    geometry at T = 1 and 257 and a hidden size of 4128 (qkv_edges lines,
-   bf16 and f32, two calls bit-equal) and the QKV and int8 plans at the
-   main shapes (qkv_plan, int8_plan lines); and
+   bf16 and f32, two calls bit-equal) and the QKV, int8, int4 and
+   megakernel plans at the main shapes (qkv_plan, int8_plan, int4_plan,
+   mega_plan lines); and
    the flash kernels off those shapes in bf16, f32 and f16 (causal
    Sq < Sk, ragged lengths and the 128-row tile's edges, head dims 18,
    64, 80, 256, a GQA group of 8); the int8 and int4 weight-only matmul
    kernels at the four shapes of the quantized llama2-7b engine step (128
    rows through 4096x4096, 4096x11008 and 11008x4096 weights, 8 rows
-   through the 4096x32000 LM head; int8 also in f16) with a cuBLAS
-   yardstick over the widened weight, each kind's sum over one step's 225
-   calls, and their
+   through the 4096x32000 LM head; bf16, f32 and f16, each row with its
+   device time and the host's time per call) with a cuBLAS yardstick over
+   the widened weight, each kind's sum over one step's 225 calls, and
+   their
    edge cases (M 1/8/257, K 100/102, N 200, f16, an unaligned x, every
    int8 code and every packed int4 byte); the fused GELU MLP at the
    gpt3-6.7b engine step (T = 128, H 4096, F 16384), gpt3-13b's H 5120 /
@@ -92,20 +94,23 @@ Phases, each of which fails the run on its own (nothing is caught):
    parameter's update must agree (decay-only elements to 4 f32 units).
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
-qkv_edges, qkv_plan, int8_plan, flash_edges, quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
+qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
+quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
 cross_check, quant_cross_check, gpt_cross_check, train,
 train_cross_check), the card's name and power limit, a {"kernels": [...]}
-line, and last the {"ok": true, "device": {...}} line.  The QKV, SwiGLU
-and int8 kernel rows carry `device_ms`, the device busy time of one call,
-beside the CUDA-event `ms`.  Device busy
-times are the union of the kernels' intervals in a profiler trace (the
-MLP kernels' dependent launches overlap the kernel before them).  Exits
-non-zero without a CUDA device.
+line, and last the {"ok": true, "device": {...}} line.  The QKV, SwiGLU,
+int8, int4, megakernel and BGMV kernel rows carry `device_ms`, the card's
+time per call with the host out of the way (CUDA events around calls
+queued behind a sleep kernel), beside the CUDA-event `ms` of calls as the
+host issues them; the int8 and int4 rows also `host_us`, the host's wall
+time per call of 200 calls without a synchronize.  The engine and train
+phases' device busy times are the union of the kernels' intervals in a
+profiler trace (the MLP kernels' dependent launches overlap the kernel
+before them).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import math
@@ -136,7 +141,10 @@ from paddle_tpu_torch.ops.cuda import int4_matmul as I4
 from paddle_tpu_torch.ops.cuda import int8_matmul as I8
 from paddle_tpu_torch.ops.cuda import lora_matmul as LM
 from paddle_tpu_torch.ops.cuda import mega_decode as MD
+from paddle_tpu_torch.ops.cuda.int4_plan import (
+    MAX_PARTIAL_BYTES as INT4_MAX_PARTIAL_BYTES, int4_plan)
 from paddle_tpu_torch.ops.cuda.int8_plan import int8_plan
+from paddle_tpu_torch.ops.cuda.mega_plan import mega_plan
 from paddle_tpu_torch.ops.cuda.mlp_plan import (MAX_PARTIAL_BYTES, mlp_plan,
                                                 sm_count)
 from paddle_tpu_torch.ops.cuda.qkv_plan import qkv_plan
@@ -700,9 +708,9 @@ def qkv_edge_rows(gen):
 
 
 def plan_lines():
-    """The QKV and int8 plans at the main path's shapes: tiles, splits and
-    scratch bytes (the f32 partials at most 16 MiB, none at T = 4096 or
-    at the LM head)."""
+    """The QKV, int8, int4 and megakernel plans at the main path's shapes:
+    tiles, splits and scratch bytes (the f32 partials at most 16 MiB, none
+    at T = 4096 or at the LM head)."""
     qkv = {}
     for geom, t in (("llama2-7b", 128), ("llama2-70b-gqa", 128),
                     ("llama2-7b", 4096)):
@@ -723,6 +731,29 @@ def plan_lines():
                 "tiles": p.tiles, "splits": p.splits, "blocks": p.blocks,
                 "partial_bytes": p.partial_bytes}
     log("int8_plan " + json.dumps(i8))
+    sms = sm_count(torch.device("cuda"))
+    i4 = {}
+    for m, k, n in [s[:3] for s in QUANT_STEP] + [
+            (1, 4096, 4096), (8, 4096, 4096), (257, 4096, 4096)]:
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            p = int4_plan(m, k, n, dt, sms)
+            if dt != torch.float32:
+                assert p.partial_bytes <= INT4_MAX_PARTIAL_BYTES, p
+                assert m > 8 or p.bm == 8, p
+            i4[f"{m}x{k}x{n} {str(dt).replace('torch.', '')}"] = {
+                "bm": p.bm, "bn": p.bn, "tiles": p.tiles, "splits": p.splits,
+                "blocks": p.blocks, "partial_bytes": p.partial_bytes}
+    log("int4_plan " + json.dumps(i4))
+    mg = {}
+    for geom in ("llama2-7b", "llama2-70b-gqa"):
+        for dt in (torch.bfloat16, torch.float32):
+            p = mega_plan(128, *QKV_GEOMS[geom], dt, sms)
+            assert p.partial_bytes <= MAX_PARTIAL_BYTES, p
+            mg[f"{geom} {str(dt).replace('torch.', '')}"] = {
+                "phases": p.phases, "qkv_tiles": p.qkv_tiles,
+                "qkv_splits": p.qkv_splits, "o_tiles": p.o_tiles,
+                "o_splits": p.o_splits, "scratch_bytes": p.scratch_bytes}
+    log("mega_plan " + json.dumps(mg))
     return qkv, i8
 
 
@@ -773,14 +804,29 @@ def step_sum(part, key):
     return sum(r[key] * r["calls_per_step"] for r in part)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """The host's wall time per call, in microseconds, of ``calls``
+    back-to-back calls without a synchronize: what a call costs the host
+    (the wrapper and its launches) while the card works through them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def quant_kernel_rows(gen):
-    """int8 and int4, bf16 and f32, at the weight-only engine step's four
-    shapes; then each kind's sum over one step's 225 calls."""
+    """int8 and int4, bf16, f32 and f16, at the weight-only engine step's
+    four shapes (the kernel's device time and host time per call beside
+    its CUDA-event time); then each kind's sum over one step's 225
+    calls."""
     rows = []
     for kind in QUANT:
         for m, k, n, calls in QUANT_STEP:
-            for dt in (torch.bfloat16, torch.float32) + (
-                    (torch.float16,) if kind == "int8" else ()):
+            for dt in (torch.bfloat16, torch.float32, torch.float16):
                 err, kern, plain, library, nbytes, ops, ins = quant_case(
                     kind, m, k, n, dt, gen)
                 torch.cuda.synchronize()
@@ -793,9 +839,8 @@ def quant_kernel_rows(gen):
                        "library_ms": cuda_ms(library), "bound_ms": bms,
                        "bound_by": by,
                        "int8pack_ms": int8pack_ms(*ins)
-                       if kind == "int8" else None}
-                if kind == "int8":
-                    row["device_ms"] = device_ms(kern)
+                       if kind == "int8" else None,
+                       "device_ms": device_ms(kern), "host_us": host_us(kern)}
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del kern, plain, library, ins
@@ -807,9 +852,9 @@ def quant_kernel_rows(gen):
                 "dtype": "bfloat16",
                 "calls_per_step": sum(r["calls_per_step"] for r in part),
                 "max_abs_err": max(r["max_abs_err"] for r in part)}
-        for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
-            if key in part[0]:
-                step[key] = step_sum(part, key)
+        for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "host_us"):
+            step[key] = step_sum(part, key)
         by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
                        if r["bound_by"] == "bytes")
         step["bound_by"] = "bytes" if by_bytes >= step["bound_ms"] / 2 \
@@ -1093,14 +1138,16 @@ def new_kernel_rows(gen, rng):
     for geom, (h, nq, nk) in (("llama2-7b", (4096, 4096, 4096)),
                               ("llama2-70b-gqa", (8192, 8192, 1024))):
         for dt in (torch.bfloat16, torch.float32):
-            grid = MD.KERNEL.helper("pt_mega_decode_grid",
-                                    [ctypes.c_int] * 9, ctypes.c_int)(
-                8, 16, h, nq, nk, 16, nk // 128, 128,
-                _build.dtype_code(dt))
+            plan = mega_plan(128, h, nq, nk, 128, dt,
+                             sm_count(torch.device("cuda")))
+            grid = MD.grid_blocks(8, 16, h, nq, nk, 16, nk // 128, 128,
+                                  plan.qkv_splits, plan.o_splits,
+                                  _build.dtype_code(dt))
             rows.append(timed_row(
                 "mega_decode", geom, dt,
                 mega_case(8, 16, h, nq, nk, 128, 16, 512, dt, gen, rng),
-                {"grid_blocks": grid}))
+                {"grid_blocks": grid, "qkv_splits": plan.qkv_splits,
+                 "o_splits": plan.o_splits, "phases": plan.phases}))
             torch.cuda.empty_cache()
     for d_in, d_out, calls in LORA_STEP:
         for dt in (torch.bfloat16, torch.float32):

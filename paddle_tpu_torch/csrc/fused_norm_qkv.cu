@@ -41,103 +41,29 @@
 //          split order, rounds, applies RoPE and rounds again.  No atomics:
 //          two calls give the same bits.
 //
+// The device code of the three bf16 kernels is qkv_gemm.cuh, which the
+// decode megakernel (mega_decode.cu) runs as work items of its phases.
 // f32 keeps the SIMT tile of norm_qkv_tile.cuh (64 token rows by one head
 // per block, full f32 products on the SIMT units), which mega_decode.cu
-// shares.
-#include "mlp_gemm.cuh"
+// shares too.
 #include "norm_qkv_tile.cuh"
+#include "qkv_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kNormThreads = 128;
-constexpr int kBN = 128;   // output columns per bf16 GEMM block
+constexpr int kBN = qkv::kBN;   // output columns per bf16 GEMM block
 
-// nx (t, h) = round(x * rsqrt(mean(x^2) + eps) * g), one block per row,
-// 16-byte vectors (h % 8 == 0).  The GEMM after it is a dependent launch.
+// nx (t, h) = round(x * rsqrt(mean(x^2) + eps) * g), one block per row.
+// The GEMM after it is a dependent launch.
 __global__ void __launch_bounds__(kNormThreads)
 rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                 bf16* __restrict__ nx, int h, float eps) {
   sm90::launch_dependents();   // the GEMM may start fetching its weights
   __shared__ float warp_sums[kNormThreads / 32];
-  const bf16* xr = x + (size_t)blockIdx.x * h;
-  float s = 0.f;
-  for (int c = threadIdx.x * 8; c < h; c += kNormThreads * 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float f = pt::to_f(e[i]);
-      s += f * f;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = s;
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int w = 0; w < kNormThreads / 32; ++w) total += warp_sums[w];
-  const float rstd = rsqrtf(total / (float)h + eps);
-  bf16* out = nx + (size_t)blockIdx.x * h;
-  for (int c = threadIdx.x * 8; c < h; c += kNormThreads * 8) {
-    const uint4 ux = *reinterpret_cast<const uint4*>(xr + c);
-    const uint4 ug = *reinterpret_cast<const uint4*>(g + c);
-    const bf16* ex = reinterpret_cast<const bf16*>(&ux);
-    const bf16* eg = reinterpret_cast<const bf16*>(&ug);
-    uint32_t p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = sm90::pack2<bf16>(pt::to_f(ex[2 * i]) * rstd * pt::to_f(eg[2 * i]),
-                               pt::to_f(ex[2 * i + 1]) * rstd *
-                                   pt::to_f(eg[2 * i + 1]));
-    *reinterpret_cast<uint4*>(out + c) = make_uint4(p[0], p[1], p[2], p[3]);
-  }
-}
-
-// lo, hi = round(lo), round(hi) rotated by cos/sin (c_lo, s_lo of column
-// j, c_hi, s_hi of column j + HD/2), in f32 with explicit roundings so
-// y*c + rot*s stays unfused.
-__device__ __forceinline__ void rope_pair(float& lo, float& hi, float c_lo,
-                                          float s_lo, float c_hi,
-                                          float s_hi) {
-  const float a = pt::round_to<bf16>(lo), b = pt::round_to<bf16>(hi);
-  lo = __fadd_rn(__fmul_rn(a, c_lo), __fmul_rn(-b, s_lo));
-  hi = __fadd_rn(__fmul_rn(b, c_hi), __fmul_rn(a, s_hi));
-}
-
-// RoPE on the block's m64n128 accumulator in place (sm90.cuh gives the
-// layout): column block j (8 columns) of a head pairs with j + HD/16.
-template <int HD>
-__device__ __forceinline__ void rope_regs(float (&d)[kBN / 2],
-                                          const bf16* __restrict__ cos,
-                                          const bf16* __restrict__ sin,
-                                          int t, int m0) {
-  constexpr int HALF = HD / 2, PJ = HALF / 8;
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    if ((8 * j) % HD >= HALF) continue;
-    const int c = mlp::acc_col(j, 0) % HD;   // even, < HALF
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = m0 + mlp::acc_row(i);
-      if (r >= t) continue;
-      const size_t o = (size_t)r * HD + c;
-      const __nv_bfloat162 cl = *reinterpret_cast<const __nv_bfloat162*>(cos + o);
-      const __nv_bfloat162 ch =
-          *reinterpret_cast<const __nv_bfloat162*>(cos + o + HALF);
-      const __nv_bfloat162 sl = *reinterpret_cast<const __nv_bfloat162*>(sin + o);
-      const __nv_bfloat162 sh =
-          *reinterpret_cast<const __nv_bfloat162*>(sin + o + HALF);
-      rope_pair(d[4 * j + 2 * i], d[4 * (j + PJ) + 2 * i],
-                __low2float(cl), __low2float(sl), __low2float(ch),
-                __low2float(sh));
-      rope_pair(d[4 * j + 2 * i + 1], d[4 * (j + PJ) + 2 * i + 1],
-                __high2float(cl), __high2float(sl), __high2float(ch),
-                __high2float(sh));
-    }
-  }
+  qkv::norm_row<kNormThreads>(x, g, nx, h, eps, blockIdx.x, warp_sums);
 }
 
 // y = nx @ W over 128 x 128 tiles; grid (row tiles, column tiles of
@@ -155,51 +81,16 @@ qkv_gemm_kernel(const bf16* __restrict__ nx, const bf16* __restrict__ wq,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = mlp::align1024(smem_raw);
   sm90::launch_dependents();   // the split sum may start its launch
-  const int tq = (nq + kBN - 1) / kBN, tk = (nk + kBN - 1) / kBN;
-  int tile = blockIdx.y, kind, nw, coff;
-  const bf16* w;
-  bf16* out;
-  if (tile < tq) {
-    kind = 0; w = wq; out = q; nw = nq; coff = 0;
-  } else if (tile < tq + tk) {
-    tile -= tq; kind = 1; w = wk; out = k; nw = nk; coff = nq;
-  } else {
-    tile -= tq + tk; kind = 2; w = wv; out = v; nw = nk; coff = nq + nk;
-  }
-  const int m0 = blockIdx.x * mlp::kBM, n0 = tile * kBN;
-  const int ncols = min(kBN, nw - n0);
   const int steps = (h + mlp::kBK - 1) / mlp::kBK;
   const int kb = blockIdx.z * kps, ke = min(steps, kb + kps);
-  float acc[1][kBN / 2];
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) acc[0][i] = 0.f;
-  const bf16* const ws[1] = {w};
-  mlp::gemm_tiles<1, kBN, true, true>(sm, nx, h, t, m0, ws, nw, n0, kb, ke,
-                                      acc, h, ncols);
-  if (gridDim.z == 1) {
-    if (kind != 2) rope_regs<HD>(acc[0], cos, sin, t, m0);
-    mlp::store_rows<kBN>(out, nw, t, m0, n0, sm, acc[0], ncols);
-    return;
-  }
-  const int ntot = nq + 2 * nk;
-  float* p = partial + (size_t)blockIdx.z * t * ntot + coff + n0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = m0 + mlp::acc_row(i);
-    if (r >= t) continue;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int c = mlp::acc_col(j, 0);
-      if (c < ncols)
-        *reinterpret_cast<float2*>(p + (size_t)r * ntot + c) =
-            make_float2(acc[0][4 * j + 2 * i], acc[0][4 * j + 2 * i + 1]);
-    }
-  }
+  qkv::gemm_tile<HD, true>(sm, nx, wq, wk, wv, cos, sin, q, k, v, partial,
+                           t, h, nq, nk, blockIdx.x * mlp::kBM, blockIdx.y,
+                           kb, ke, blockIdx.z, gridDim.z > 1);
 }
 
-// The splits' partials added in split order for columns j and j + HD/2 of
-// one head of one row, rounded, RoPE on q and k, rounded again.  A
-// dependent launch after the GEMM.
+// The splits' partials added in split order, then round -> RoPE -> round
+// (qkv_gemm.cuh `sum_pair`), one column pair a thread.  A dependent
+// launch after the GEMM.
 template <int HD>
 __global__ void qkv_sum_kernel(const float* __restrict__ partial,
                                const bf16* __restrict__ cos,
@@ -207,37 +98,9 @@ __global__ void qkv_sum_kernel(const float* __restrict__ partial,
                                bf16* __restrict__ q, bf16* __restrict__ k,
                                bf16* __restrict__ v, int t, int nq, int nk,
                                int splits) {
-  constexpr int HALF = HD / 2;
-  const int half_cols = (nq + 2 * nk) / 2;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   sm90::grid_dependency_wait();
-  if (idx >= (size_t)t * half_cols) return;
-  const int r = (int)(idx / half_cols), u = (int)(idx % half_cols);
-  const int col = u / HALF * HD + u % HALF, j = u % HALF;
-  const size_t plane = (size_t)t * 2 * half_cols;
-  const float* p = partial + (size_t)r * 2 * half_cols + col;
-  float lo = 0.f, hi = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    lo += p[s * plane];
-    hi += p[s * plane + HALF];
-  }
-  bf16* out;
-  int ld, oc;
-  if (col < nq) {
-    out = q; ld = nq; oc = col;
-  } else if (col < nq + nk) {
-    out = k; ld = nk; oc = col - nq;
-  } else {
-    out = v; ld = nk; oc = col - nq - nk;
-  }
-  if (col < nq + nk) {   // q or k
-    const bf16* cr = cos + (size_t)r * HD;
-    const bf16* sr = sin + (size_t)r * HD;
-    rope_pair(lo, hi, pt::to_f(cr[j]), pt::to_f(sr[j]),
-              pt::to_f(cr[HALF + j]), pt::to_f(sr[HALF + j]));
-  }
-  out[(size_t)r * ld + oc] = pt::from_f<bf16>(lo);
-  out[(size_t)r * ld + oc + HALF] = pt::from_f<bf16>(hi);
+  qkv::sum_pair<HD>(partial, cos, sin, q, k, v, t, nq, nk, splits, idx);
 }
 
 template <int HD>

@@ -36,14 +36,9 @@ extern "C" int pt_int8_matmul(const void* x, const void* w,
     case PT_F16:
       return dg::run<__half>(x, w, scale, out, partial, m, k, n, splits, s);
     case PT_F32: {
-      constexpr int bk = dq::Chunk<float>::kBK;
-      const int chunks = (k + bk - 1) / bk;
-      const int cps = splits >= 1 ? (chunks + splits - 1) / splits : 0;
-      const bool ok = m >= 1 && n >= 1 && k >= 0 && splits >= 1 &&
-                      (chunks == 0 ? splits == 1 : (splits - 1) * cps < chunks);
-      if (!ok) return (int)cudaErrorInvalidValue;
-      return dq::run_split<float, false>(x, w, scale, out, partial, m, k, n,
-                                         {splits, cps}, s);
+      const dq::Split sp = dq::split_for(m, k, n, splits);
+      if (sp.splits == 0) return (int)cudaErrorInvalidValue;
+      return dq::run_split<false>(x, w, scale, out, partial, m, k, n, sp, s);
     }
     default:
       return (int)cudaErrorInvalidValue;

@@ -3,11 +3,13 @@
 // tensor cores, f32 on the SIMT units), the down projection with its
 // split-K epilogue, the fixed-order sum of the splits and the check of the
 // plan that the Python wrapper chose (paddle_tpu_torch/ops/cuda/mlp_plan.py).
-// The fused QKV kernel (csrc/fused_norm_qkv.cu) runs its product on
-// `gemm_tiles` too (with EDGE: a contraction tail and half-width column
-// tiles) and stores through `store_rows`; the int8 GEMM
-// (csrc/dequant_gemm.cuh) borrows the accumulator layout and the
-// dependent launch.
+// The fused QKV kernel (csrc/fused_norm_qkv.cu, through
+// csrc/qkv_gemm.cuh) and the decode megakernel's Q/K/V and O-projection
+// phases (csrc/mega_decode.cu) run their products on `gemm_tiles` too
+// (with EDGE: a contraction tail and half-width column tiles) and store
+// through `store_rows`; the int8 and int4 GEMMs (csrc/dequant_gemm.cuh,
+// csrc/dequant_swap.cuh) borrow the accumulator layout, the ring's
+// alignment and the dependent launch.
 //
 // Both MLPs run as two GEMMs over one intermediate h in device memory:
 //   up:   h = act(x @ W1 [+ b1]) -> (T, I) in x's dtype, rounded once;

@@ -1,31 +1,25 @@
-// Device code of the fused RMSNorm -> Q/K/V -> RoPE kernel, shared by
-// fused_norm_qkv.cu (one tile per block) and mega_decode.cu (tiles as
-// work items of its phase 1; its O-projection phase runs the same main
-// loops without the norm).
+// Device code of the f32 fused RMSNorm -> Q/K/V -> RoPE kernel, shared by
+// fused_norm_qkv.cu (one tile per block) and the f32 decode megakernel in
+// mega_decode.cu (tiles as work items of its phase 1; its O-projection
+// phase runs the same main loop without the norm).  bf16 runs on wgmma in
+// qkv_gemm.cuh.
 //
 // A tile is BT=64 token rows by HD output columns of one weight matrix.
-// `mainloop_*<HD, NORM>` accumulate (norm(x) or x) @ W[:, col0:col0+HD]
+// `mainloop_simt<HD, NORM>` accumulates (norm(x) or x) @ W[:, col0:col0+HD]
 // in f32 into the shared result tile `cs` (row stride kLdc<HD>):
-// - NORM: x is normed as it is staged, `x * rstd[row] * g`, rounded to
-//   the storage type (the contract's `nx`);
+// - NORM: x is normed as it is staged, `x * rstd[row] * g`;
 // - !NORM: x is staged as it is.  These rows were written earlier in the
 //   same launch by other blocks (mega_decode's attention output), so
 //   they are loaded with `__ldcg` (L2, never the non-coherent read-only
 //   path) after the grid barrier that orders them.
-// The bf16 loop runs on the tensor cores (WMMA, mma.sync 16x16x16, f32
-// accumulation); the f32 loop on the SIMT units so it stays full f32.
+// The loop runs on the SIMT units so it stays full f32.
 #pragma once
 
 #include "common.cuh"
 
-#include <mma.h>
-
 #include <type_traits>
 
 namespace pt_tile {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 constexpr int kBT = 64;   // token rows per tile
 constexpr int kThreads = 256;
@@ -99,113 +93,12 @@ __device__ void mainloop_simt(const float* __restrict__ x,
     }
 }
 
-// bf16 main loop on the tensor cores: 8 warps tile the 64 x HD result;
-// the (normed, rounded) x tile and the weight tile are staged in shared
-// memory as bf16, 16-byte vectors at a time.
-template <int HD, bool NORM>
-__device__ void mainloop_tc(const bf16* __restrict__ x,
-                            const bf16* __restrict__ g,
-                            const bf16* __restrict__ w, int ldw, int col0,
-                            int t, int h, int t0, const float* rstd,
-                            unsigned char* stage, float* cs) {
-  constexpr int BK = 32, LDA = BK + 8, LDB = HD + 8;
-  constexpr int WARPS_N = HD / 32, WARPS_M = 8 / WARPS_N;
-  constexpr int FM = kBT / WARPS_M / 16;        // 16-row fragments / warp
-  bf16* as = reinterpret_cast<bf16*>(stage);    // [kBT][LDA]
-  bf16* bs = as + kBT * LDA;                    // [BK][LDB]
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][2];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < h; k0 += BK) {
-    {   // A: kBT x BK = 256 vectors of 8, one per thread
-      const int r = tid / (BK / 8), v = tid % (BK / 8);
-      const int row = t0 + r;
-      alignas(16) bf16 vals[8];
-      if (row < t) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            x + (size_t)row * h + k0 + v * 8);
-        if constexpr (NORM) {
-          alignas(16) bf16 xv[8], gv[8];
-          *reinterpret_cast<uint4*>(xv) = *src;
-          *reinterpret_cast<uint4*>(gv) =
-              *reinterpret_cast<const uint4*>(g + k0 + v * 8);
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            vals[i] = pt::from_f<bf16>(pt::to_f(xv[i]) * rstd[r] *
-                                       pt::to_f(gv[i]));
-        } else {
-          *reinterpret_cast<uint4*>(vals) = __ldcg(src);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) vals[i] = pt::from_f<bf16>(0.f);
-      }
-      *reinterpret_cast<uint4*>(as + r * LDA + v * 8) =
-          *reinterpret_cast<const uint4*>(vals);
-    }
-    for (int e = tid; e < BK * HD / 8; e += kThreads) {   // B
-      const int kk = e / (HD / 8), v = e % (HD / 8);
-      *reinterpret_cast<uint4*>(bs + kk * LDB + v * 8) =
-          *reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * ldw +
-                                          col0 + v * 8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * FM * 16 + i * 16) * LDA + kk,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          cs + (wm * FM * 16 + i * 16) * kLdc<HD> + wn * 32 + j * 16,
-          acc[i][j], kLdc<HD>, wmma::mem_row_major);
-}
-
-// (x or norm(x)) tile times W[:, col0:col0+HD] into `cs`, whichever loop
-// the storage type takes.
-template <typename T, int HD, bool NORM>
-__device__ __forceinline__ void mainloop(const T* x, const T* g,
-                                         const T* w, int ldw, int col0,
-                                         int t, int h, int t0,
-                                         const float* rstd,
-                                         unsigned char* stage, float* cs) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    mainloop_tc<HD, NORM>(x, g, w, ldw, col0, t, h, t0, rstd, stage, cs);
-  } else {
-    mainloop_simt<HD, NORM>(x, g, w, ldw, col0, t, h, t0, rstd, stage, cs);
-  }
-}
-
 // Shared memory of one tile: the per-row 1/rms, then the main loop's
 // staging area, which the f32 result tile reuses after it.
 template <typename T, int HD>
 __host__ __device__ constexpr size_t smem_bytes() {
-  constexpr size_t stage = std::is_same<T, bf16>::value
-      ? (size_t)(kBT * 40 + 32 * (HD + 8)) * sizeof(bf16)
-      : (size_t)(16 * kBT + 16 * HD) * sizeof(float);
+  static_assert(std::is_same<T, float>::value, "the SIMT tile is f32");
+  constexpr size_t stage = (size_t)(16 * kBT + 16 * HD) * sizeof(float);
   constexpr size_t tile = (size_t)kBT * kLdc<HD> * sizeof(float);
   return kBT * sizeof(float) + (stage > tile ? stage : tile);
 }
@@ -258,7 +151,7 @@ __device__ void qkv_tile(const T* __restrict__ x, const T* __restrict__ g,
 
   // 2. normed-x tile times the head's weight columns, f32 accumulation,
   //    into the shared f32 result tile
-  mainloop<T, HD, true>(x, g, w, ldw, col0, t, h, t0, rstd, stage, cs);
+  mainloop_simt<HD, true>(x, g, w, ldw, col0, t, h, t0, rstd, stage, cs);
   __syncthreads();
 
   // 3. epilogue: round, then rotate-half RoPE on q and k in f32

@@ -80,6 +80,20 @@ __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// Four 8 x 8 matrices of 16-bit elements from shared memory, transposed:
+// lanes 8i .. 8i + 7 give the addresses of matrix i's eight 16-byte rows,
+// and lane l receives in r[i] matrix i's elements (row 2 (l % 4), column
+// l / 4) in its low half and (row 2 (l % 4) + 1, column l / 4) in its
+// high half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -173,7 +187,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // mma_ss<T, N>: d (+)= A (64 x 16, K-major, shared) . B (16 x N, K-major,
 // shared); mma_ss_mn<T, N>: the same with B MN-major (a row-major (K, N)
 // weight tile, as the MLP kernels read theirs); mma_rs<T, N>: d (+)= A
-// (registers) . B (16 x N, MN-major, shared).  `acc` 0 overwrites d.
+// (registers) . B (16 x N, MN-major, shared); mma_rs_k<T, N>: the same
+// with B K-major.  `acc` 0 overwrites d.  The A fragment in registers:
+// lane l of warp w holds {A[16w + g][2c, 2c+1], A[16w + g + 8][2c, 2c+1],
+// A[16w + g][2c + 8, 2c + 9], A[16w + g + 8][2c + 8, 2c + 9]}, g = l / 4,
+// c = l % 4, each pair packed low half first.
 template <typename T, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int acc);
@@ -184,13 +202,19 @@ template <typename T, int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t b,
                                        int acc);
+template <typename T, int N>
+__device__ __forceinline__ void mma_rs_k(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc);
 
 #define PT_D8(i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PT_D4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
 #define PT_D16 PT_D8(0), PT_D8(8)
 #define PT_D32 PT_D16, PT_D8(16), PT_D8(24)
 #define PT_D64 PT_D32, PT_D8(32), PT_D8(40), PT_D8(48), PT_D8(56)
+#define PT_R4 "{%0, %1, %2, %3}"
 #define PT_R16                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define PT_R32                                                             \
@@ -242,6 +266,20 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));  \
   }
 
+// The same with B K-major (trans-b 0).
+#define PT_WGMMA_RS_K(T, TY, N, DREGS, DOPS, A0, A1, A2, A3, IB, IS)      \
+  template <>                                                             \
+  __device__ __forceinline__ void mma_rs_k<T, N>(                         \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b, int acc) {     \
+    asm volatile(                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"                 \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "   \
+        DREGS ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #IB         \
+        ", p, 1, 1, 0;\n}\n"                                              \
+        : DOPS                                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));  \
+  }
+
 PT_WGMMA_SS(__nv_bfloat16, "bf16", 32, PT_R16, PT_D16, 16, 17, 18)
 PT_WGMMA_SS(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34)
 PT_WGMMA_SS(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66)
@@ -256,16 +294,27 @@ PT_WGMMA_RS(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68,
             69)
 PT_WGMMA_RS(__half, "f16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36, 37)
 PT_WGMMA_RS(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68, 69)
+PT_WGMMA_RS_K(__nv_bfloat16, "bf16", 8, PT_R4, PT_D4, 4, 5, 6, 7, 8, 9)
+PT_WGMMA_RS_K(__nv_bfloat16, "bf16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36,
+              37)
+PT_WGMMA_RS_K(__nv_bfloat16, "bf16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68,
+              69)
+PT_WGMMA_RS_K(__half, "f16", 8, PT_R4, PT_D4, 4, 5, 6, 7, 8, 9)
+PT_WGMMA_RS_K(__half, "f16", 64, PT_R32, PT_D32, 32, 33, 34, 35, 36, 37)
+PT_WGMMA_RS_K(__half, "f16", 128, PT_R64, PT_D64, 64, 65, 66, 67, 68, 69)
 
+#undef PT_WGMMA_RS_K
 #undef PT_WGMMA_RS
 #undef PT_WGMMA_SS_MN
 #undef PT_WGMMA_SS
 #undef PT_R64
 #undef PT_R32
 #undef PT_R16
+#undef PT_R4
 #undef PT_D64
 #undef PT_D32
 #undef PT_D16
+#undef PT_D4
 #undef PT_D8
 
 }  // namespace sm90

@@ -54,8 +54,16 @@ def dtype_code(dtype: torch.dtype,
     return _DTYPE_CODES[dtype]
 
 
+# PyTorch's own accessor of the current raw stream (its CUDA builds have
+# it): a launch asks for the stream on every call, and this skips building
+# a Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s card."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

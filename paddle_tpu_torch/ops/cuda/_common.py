@@ -19,10 +19,11 @@ def on_cuda(op: str, *tensors: torch.Tensor, kernel=None) -> bool:
     on the CPU (the plain version runs; ``kernel.plain_calls`` counts it).
     Any other device, or a mix of devices, raises: a CUDA tensor gets the
     kernel or an error."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{op}: inputs on several devices {sorted(map(str, devs))}")
-    dev = devs.pop()
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            devs = sorted({str(u.device) for u in tensors})
+            raise ValueError(f"{op}: inputs on several devices {devs}")
     if dev.type == "cpu":
         if kernel is not None:
             kernel.plain_calls += 1

@@ -1,7 +1,8 @@
 """Pieces shared by the parent-vs-change timing tools (``compare_flash``,
-``compare_mlp``, ``compare_qkv_quant``): build another tree's kernel
-sources beside this one's, time a call with CUDA events or as device busy
-time in a profiler trace, and name the card."""
+``compare_mlp``, ``compare_qkv_quant``, ``compare_int4_mega``) and
+``chip_smoke.py``: build another tree's kernel sources beside this one's,
+time a call with CUDA events (as the host sees it, or with the host out
+of the way), the busy union of a profiler trace, and name the card."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import ctypes
 import shutil
 import statistics
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -87,24 +89,50 @@ def device_events(prof):
             if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, calls: int = 10, tries: int = 3):
-    """Device busy time of one ``fn()`` in ms: the union of the kernels'
-    intervals in a torch.profiler trace of ``calls`` calls, divided by
-    ``calls`` -- where a call is shorter than the host's time to issue it,
-    cuda_ms measures the host and this the card.  The profiler now and
-    then records no device activity at all; such a trace is taken again,
-    up to ``tries`` times, and None is returned if none shows any."""
-    from torch.profiler import ProfilerActivity, profile
+def _cycles_per_ms() -> float:
+    """The card's clock, from a timed ``torch.cuda._sleep``."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
+def device_ms(fn, calls: int = 20, windows: int = 3, tries: int = 4):
+    """Device time of one ``fn()`` in ms, with the host out of the way: a
+    sleep kernel holds the stream while the host queues ``calls`` calls
+    behind it, so CUDA events around them time the card running them back
+    to back; the median over ``windows`` such windows.  Where a call is
+    shorter than the host's time to issue it, cuda_ms measures the host
+    and this the card.  (A profiler trace's busy union served here once;
+    late in a long process on an H100 its traces lost kernels.)  The sleep
+    is lengthened until the host queues every call within it; None if it
+    never does in ``tries`` rounds."""
     fn()
     torch.cuda.synchronize()
+    per_ms = _cycles_per_ms()
+    sleep_ms, times = 5.0, []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while len(times) < windows:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(sleep_ms * per_ms))
+            a.record()
+            t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        busy = union_ms(device_events(prof))
-        if busy > 0:
-            return busy / calls
+            host_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            b.synchronize()
+            if host_ms > 0.8 * sleep_ms:
+                sleep_ms = 2.0 * host_ms
+                break
+            times.append(a.elapsed_time(b) / calls)
+        if len(times) == windows:
+            return statistics.median(times)
     return None
 
 

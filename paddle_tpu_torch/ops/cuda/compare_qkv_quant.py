@@ -16,10 +16,10 @@ through its own interface, as its own wrapper calls it: the plan one
 (:mod:`.qkv_plan` and :mod:`.int8_plan` size the scratch and give the
 split count) or the one before it (no scratch for QKV; a
 ``pt_int8_matmul_scratch`` helper sizes int8's partials).  Each time is
-the median of 5 CUDA-event windows around 5 calls, and the device busy
-time of 10 calls in a profiler trace; a line keeps the better of a tree's
-two turns, beside one PyTorch call chain of the same function (never
-called by the port).  Prints one JSON line per row and the card's name
+the median of 5 CUDA-event windows around 5 calls, and the device time of
+a call with the host out of the way (``_compare.device_ms``); a line
+keeps the better of a tree's two turns, beside one PyTorch call chain of
+the same function (never called by the port).  Prints one JSON line per row and the card's name
 and power limit.  Needs a CUDA card and ``nvcc``.
 """
 
@@ -156,8 +156,8 @@ def _int8_inputs(m, k, n, gen, dt=torch.bfloat16):
 
 def _turns(calls, ins):
     """Best CUDA-event and device ms of each tree over the turns this,
-    other, other, this (device None where no trace showed the card
-    busy); and each tree's output."""
+    other, other, this (device None where none was measured); and each
+    tree's output."""
     res, dev, outs = {}, {}, {}
     for name in ("this", "other", "other", "this"):
         fn = lambda: calls[name](*ins)

@@ -32,6 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("int8_matmul", "pt_int8_matmul", [_P] * 5 + [_I] * 5 + [_P])
 # the types x may have on the card
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {d: dtype_code(d, DTYPES) for d in DTYPES}
 
 
 def plain(x, w, scale):
@@ -42,15 +43,20 @@ def plain(x, w, scale):
 
 def check_quant(op: str, x, w, scale) -> int:
     """Check a dequant matmul's card tensors (the int8 and the int4
-    kernels take the same); returns the C entry points' dtype code."""
-    check(op, x.dtype in DTYPES, f"x is {x.dtype}; the kernel takes "
-          "float32, bfloat16 or float16")
-    check(op, w.dtype == torch.int8, f"weight is {w.dtype}, expected int8")
-    check(op, scale.dtype == torch.float32,
-          f"scale is {scale.dtype}, expected float32")
+    kernels take the same); returns the C entry points' dtype code.  The
+    messages are built only for a check that fails: the wrappers run this
+    on every call."""
+    if x.dtype not in DTYPES:
+        check(op, False, f"x is {x.dtype}; the kernel takes float32, "
+              "bfloat16 or float16")
+    if w.dtype != torch.int8:
+        check(op, False, f"weight is {w.dtype}, expected int8")
+    if scale.dtype != torch.float32:
+        check(op, False, f"scale is {scale.dtype}, expected float32")
     for name, t in (("x", x), ("weight", w), ("scale", scale)):
-        check(op, t.is_contiguous(), f"{name} is not contiguous")
-    return dtype_code(x.dtype, DTYPES)
+        if not t.is_contiguous():
+            check(op, False, f"{name} is not contiguous")
+    return _DTYPE_CODE[x.dtype]
 
 
 def int8_matmul(x, w, scale):

@@ -3,11 +3,13 @@ RMSNorm -> Q/K/V -> RoPE -> attention over the paged prefix and the
 span -> O-projection + residual -- in one launch.
 
 The kernel is ``paddle_tpu_torch/csrc/mega_decode.cu`` (CUDA C++ for
-sm_90a, a cooperative launch in three grid-synchronised phases); it
-replaces the TPU kernel ``paddle_tpu/ops/pallas/mega_decode.py``
-``mega_decode``.  Its source note gives the bound and the design.  It
-returns the span's k/v and never writes the pools: the caller writes them
-with the shared span write, as the reference's ``mega_decode_layer``
+sm_90a, a cooperative launch in grid-synchronised phases: in bf16 norm,
+Q/K/V and O-projection tiles on wgmma with their split sums, in f32 three
+SIMT phases); it replaces the TPU kernel
+``paddle_tpu/ops/pallas/mega_decode.py`` ``mega_decode``.  Its source note
+gives the bound and the design; :mod:`.mega_plan` its splits and scratch.
+It returns the span's k/v and never writes the pools: the caller writes
+them with the shared span write, as the reference's ``mega_decode_layer``
 does.  :func:`plain` is the same function in plain PyTorch: the
 reference's composition (``_mega_decode_layer_ref``: the plain QKV, the
 span write, the plain ragged attention, the O projection accumulated in
@@ -23,6 +25,7 @@ plain version attends them, so compare live rows only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -32,12 +35,15 @@ from . import fused_norm_qkv as _fq
 from . import ragged_attention as _ra
 from ._build import Kernel, dtype_code, stream_of
 from ._common import check, check_dense, dot_f32, on_cuda
+from .mega_plan import check_plan, mega_plan
+from .mlp_plan import sm_count
 
-__all__ = ["KERNEL", "HEAD_DIMS", "mega_decode", "plain", "supported"]
+__all__ = ["KERNEL", "HEAD_DIMS", "grid_blocks", "mega_decode", "plain",
+           "supported"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("mega_decode", "pt_mega_decode",
-                [_P] * 18 + [_I] * 10 + [ctypes.c_float] * 2 + [_I, _P])
+                [_P] * 20 + [_I] * 12 + [ctypes.c_float] * 2 + [_I, _P])
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 # Hopper's shared memory a block may use (H100: 232,448 bytes)
@@ -48,6 +54,17 @@ _ROWS = 64      # attention q rows per work item, at most (kRT in the source)
 def _attn_smem(rows: int, page: int, d: int) -> int:
     return 4 * (rows * (d + 1) + rows * d + page * (d + 1) + page * d
                 + rows * page + 3 * rows)
+
+
+@functools.lru_cache(maxsize=64)
+def grid_blocks(b: int, c: int, h: int, nq: int, nk: int, page: int,
+                h_kv: int, d: int, qkv_splits: int, o_splits: int,
+                code: int) -> int:
+    """The cooperative grid the kernel launches for this geometry and
+    plan (``pt_mega_decode_grid``: co-resident blocks, capped at the
+    largest phase's work items; 0 when none fits)."""
+    return KERNEL.helper("pt_mega_decode_grid", [_I] * 11, _I)(
+        b, c, h, nq, nk, page, h_kv, d, qkv_splits, o_splits, code)
 
 
 def plain(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, k_pool, v_pool,
@@ -108,8 +125,10 @@ def supported(x, w_q, w_k, w_o, head_dim: int, k_pool, v_pool) -> bool:
     check(op, smem <= _SMEM_LIMIT,
           f"page {page} x head_dim {head_dim} needs {smem} bytes of shared "
           "memory")
-    grid = KERNEL.helper("pt_mega_decode_grid", [_I] * 9, _I)(
-        b, c, h, nq, nk, page, h_kv, head_dim, dtype_code(x.dtype))
+    plan = mega_plan(max(1, b * c), h, nq, nk, head_dim, x.dtype,
+                     sm_count(x.device))
+    grid = grid_blocks(b, c, h, nq, nk, page, h_kv, head_dim,
+                       plan.qkv_splits, plan.o_splits, dtype_code(x.dtype))
     check(op, grid >= 1, "no block of this geometry is co-resident on the "
           "card (the cooperative launch needs one)")
     return True
@@ -155,14 +174,23 @@ def mega_decode(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, k_pool,
     span_v = torch.empty((b, c, nk), dtype=dt, device=dev)
     if b * c == 0:
         return out, span_k, span_v
+    plan = mega_plan(b * c, h, nq, nk, head_dim, dt, sm_count(dev))
+    check_plan(op, plan)
     q_scr = torch.empty((b * c, nq), dtype=dt, device=dev)
     att_scr = torch.empty((b * c, nq), dtype=dt, device=dev)
+    nx = partial = None
+    if plan.scratch_bytes:
+        scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8,
+                              device=dev)
+        nx = scratch.data_ptr()
+        partial = nx + plan.partial_offset
     KERNEL.launch(x.data_ptr(), norm_weight.data_ptr(), w_q.data_ptr(),
                   w_k.data_ptr(), w_v.data_ptr(), w_o.data_ptr(),
                   cos.data_ptr(), sin.data_ptr(), k_pool.data_ptr(),
                   v_pool.data_ptr(), block_tables.data_ptr(),
                   starts.data_ptr(), lens.data_ptr(), out.data_ptr(),
                   span_k.data_ptr(), span_v.data_ptr(), q_scr.data_ptr(),
-                  att_scr.data_ptr(), b, c, h, nq, nk, nb, page, h_kv, d, mb,
+                  att_scr.data_ptr(), nx, partial, b, c, h, nq, nk, nb,
+                  page, h_kv, d, mb, plan.qkv_splits, plan.o_splits,
                   float(eps), float(scale), dtype_code(dt), stream_of(x))
     return out, span_k, span_v
