@@ -33,7 +33,16 @@ Phases, each of which fails the run on its own (nothing is caught):
    geometry at T = 1 and 257 and a hidden size of 4128 (qkv_edges lines,
    bf16 and f32, two calls bit-equal) and the QKV, int8, int4 and
    megakernel plans at the main shapes (qkv_plan, int8_plan, int4_plan,
-   mega_plan lines); and
+   mega_plan lines); ragged attention's rows with their device time,
+   host time per call and plan (path, tiles, splits, stages per split,
+   grid blocks, partial bytes), dead rows zeros and two calls bit-equal,
+   and its edge cases (ragged_edges: head dims 64, 72, 100, 128 and 256,
+   page 16 and 64, GQA groups 1-8, C = 1, a chunk across the plan's first
+   split, a decode row at the table's last position, the idle slot,
+   sentinel-padded tables; bf16 and f32; f16 and an f32 head dim of 512
+   must raise); grouped BGMV's rows with their plan (cluster, slice,
+   tiles, grid blocks) and host time, two calls bit-equal, rank 65 and
+   f16 raising; and
    the flash kernels off those shapes in bf16, f32 and f16 (causal
    Sq < Sk, ragged lengths and the 128-row tile's edges, head dims 18,
    64, 80, 256, a GQA group of 8); the int8 and int4 weight-only matmul
@@ -95,16 +104,17 @@ Phases, each of which fails the run on its own (nothing is caught):
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
-quant_edges, engine, quant_engine, gpt_engine, gpt_paged,
-cross_check, quant_cross_check, gpt_cross_check, train,
-train_cross_check), the card's name and power limit, a {"kernels": [...]}
-line, and last the {"ok": true, "device": {...}} line.  The QKV, SwiGLU,
-int8, int4, megakernel and BGMV kernel rows carry `device_ms`, the card's
-time per call with the host out of the way (CUDA events around calls
-queued behind a sleep kernel), beside the CUDA-event `ms` of calls as the
-host issues them; the int8 and int4 rows also `host_us`, the host's wall
-time per call of 200 calls without a synchronize.  The engine and train
-phases' device busy times are the union of the kernels' intervals in a
+quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, quant_engine,
+gpt_engine, gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
+train, train_cross_check), the card's name and power limit, a
+{"kernels": [...]} line, and last the {"ok": true, "device": {...}}
+line.  The QKV, SwiGLU, int8, int4, megakernel, BGMV and ragged attention
+rows carry `device_ms`, the card's time per call with the host out of
+the way (CUDA events around calls queued behind a sleep kernel), beside
+the CUDA-event `ms` of calls as the host launches them; the int8, int4,
+BGMV and ragged attention rows also `host_us`, the host's wall time per
+call of 200 calls without a synchronize.  The engine and train phases'
+device busy times are the union of the kernels' intervals in a
 profiler trace (the MLP kernels' dependent launches overlap the kernel
 before them).  Exits non-zero without a CUDA device.
 """
@@ -148,6 +158,8 @@ from paddle_tpu_torch.ops.cuda.mega_plan import mega_plan
 from paddle_tpu_torch.ops.cuda.mlp_plan import (MAX_PARTIAL_BYTES, mlp_plan,
                                                 sm_count)
 from paddle_tpu_torch.ops.cuda.qkv_plan import qkv_plan
+from paddle_tpu_torch.ops.cuda.ragged_plan import ragged_plan
+from paddle_tpu_torch.ops.cuda.bgmv_plan import bgmv_plan
 from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
@@ -215,6 +227,10 @@ TRAINING = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "flash_attention_fwd",
 LORA_STEP = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32),
              (11008, 4096, 32)]
 LORA_RANK = 16
+# the ragged attention rows: (B, C, H, H_kv, D, page, contexts up to) of
+# the llama2-7b engine step and of the llama2-70b GQA geometry
+RAGGED = {"llama2-7b": (8, 16, 32, 32, 128, 16, 512),
+          "llama2-70b-gqa": (8, 16, 64, 8, 128, 16, 512)}
 # the random adapters' N(0, scale) entries: the delta x @ A @ B of a
 # normed 4096-wide row then has a std of ~4096**0.5 * 16**0.5 * scale**2
 # = 0.64, half the base projection's (~1.28), so adapters change greedy
@@ -357,7 +373,10 @@ def attn_case(b, c, h, hkv, d, page, max_ctx, dtype, gen, rng):
             q.transpose(1, 2), k, v, attn_mask=mask[:, None])
 
     rows = torch.arange(c, device="cuda")[None, :] < ln[:, None]
-    err = compare("attn", kern(), plain(), dtype, rows)
+    got = kern()
+    err = compare("attn", got, plain(), dtype, rows)
+    assert bool((got[~rows] == 0).all()), "attn: dead rows not zeros"
+    assert torch.equal(got, kern()), "attn: two calls differ"
     it = q.element_size()
     live_rows = int(lens.sum())
     pages = sum(-(-(int(starts[s]) + int(lens[s])) // page)
@@ -1069,6 +1088,8 @@ def bgmv_check(x, a, b, ix, dtype, tag="bgmv"):
     err = compare(tag, got, LM.plain(x, a, b, ix), dtype)
     base = ix == 0
     assert bool((got[base] == 0).all()), f"{tag}: index-0 rows not 0"
+    assert torch.equal(got, LM.grouped_bgmv(x, a, b, ix)), \
+        f"{tag}: two calls differ"
     return err
 
 
@@ -1093,9 +1114,10 @@ def bgmv_case(d_in, d_out, dtype, gen, bsz=8, c=16, r=LORA_RANK):
 
 
 def bgmv_edge_checks(gen):
-    """Grouped BGMV off the main path's shapes: rank 8, 24 and 64, C = 1,
-    a single live slot, d_in and d_out not multiples of the chunk or
-    stripe (100, 1000), in bf16 and f32."""
+    """Grouped BGMV off the main path's shapes: rank 8, 24, 48 and 64, C
+    = 1 and 40 (three row passes), a single live slot, d_in and d_out not
+    multiples of the slice, tile or stripe (100, 1000), in bf16 and f32,
+    two calls bit-equal; then rank 65 and f16 on the card must raise."""
     errs = {}
     cases = (("rank 8", 8, 16, 4096, 4096, 8, [0, 1, 2, 3, 0, 4, 1, 2]),
              ("rank 24", 4, 16, 1000, 700, 24, [2, 0, 4, 1]),
@@ -1103,12 +1125,107 @@ def bgmv_edge_checks(gen):
              ("C=1", 8, 1, 4096, 11008, 16, [0, 1, 2, 3, 0, 4, 1, 2]),
              ("one live slot", 8, 16, 4096, 4096, 16, [0, 0, 0, 3, 0, 0, 0,
                                                        0]),
-             ("d_in 100 d_out 1000", 3, 5, 100, 1000, 16, [1, 0, 2]))
+             ("d_in 100 d_out 1000", 3, 5, 100, 1000, 16, [1, 0, 2]),
+             ("rank 48 C=40", 4, 40, 2048, 1000, 48, [3, 1, 0, 2]))
     for key, bsz, c, d_in, d_out, r, idx in cases:
         for dt in (torch.bfloat16, torch.float32):
             x, a, b, ix = bgmv_inputs(bsz, c, d_in, d_out, r, dt, gen, idx)
             errs[f"{key} {dt}"] = bgmv_check(x, a, b, ix, dt, key)
+    # card tensors the kernel cannot take raise, never fall back
+    for r, dt in ((65, torch.bfloat16), (16, torch.float16)):
+        z = lambda *shape: torch.zeros(shape, dtype=dt, device="cuda")
+        if not raises(lambda: LM.grouped_bgmv(
+                z(2, 16, 256), z(3, 256, r), z(3, r, 256),
+                torch.ones(2, dtype=torch.int32, device="cuda"))):
+            raise AssertionError(f"grouped_bgmv took rank {r} {dt}")
     log("bgmv_edges " + json.dumps(errs))
+    return errs
+
+
+def ragged_plan_fields(b, c, h, hkv, d, page, max_ctx, dtype):
+    p = ragged_plan(b, c, h, hkv, d, page, max_ctx // page, dtype,
+                    sm_count(torch.device("cuda")))
+    return {"path": p.path, "tiles": p.tiles, "splits": p.splits,
+            "stages_per_split": p.per, "grid_blocks": p.grid_blocks,
+            "partial_bytes": p.partial_bytes}
+
+
+def bgmv_plan_fields(bsz, c, d_in, r, d_out, dtype):
+    p = bgmv_plan(bsz, c, d_in, r, d_out, dtype)
+    return {"path": p.path, "cluster": p.cluster, "slice": p.slice,
+            "tiles": p.tiles, "grid_blocks": p.grid_blocks}
+
+
+def raises(fn) -> bool:
+    try:
+        fn()
+    except (TypeError, ValueError):
+        return True
+    return False
+
+
+def ragged_edge_checks(gen, rng, b=6):
+    """Ragged attention off the main path's shapes: head dims 64, 128 and
+    256 (and 72, padded on the tensor cores, and 100, bf16's SIMT path),
+    page 16 and 64, GQA groups 1, 2, 4 and 8, C = 1.  Each case's 6 slots:
+    a decode row at the table's last position, a chunk from position 0, a
+    chunk across the boundary of the plan's first split, a partial chunk,
+    a short decode row and an idle slot, tables padded with the
+    out-of-range sentinel.  bf16 and f32: the kernel against plain on live
+    rows, dead rows zeros, two calls bit-equal.  Then card tensors the
+    kernel cannot take (f16; f32 head dim 512, whose page needs more
+    shared memory than a block has) must raise."""
+    errs, plans = {}, {}
+    cases = (("hd 64 G 4", 16, 16, 4, 64, 16, 512),
+             ("hd 128 G 8 page 64", 16, 64, 8, 128, 64, 1024),
+             ("hd 256 G 1", 16, 8, 8, 256, 16, 512),
+             ("hd 128 G 1 page 64 C=1", 1, 32, 32, 128, 64, 512),
+             ("hd 128 G 8 C=1", 1, 64, 8, 128, 16, 512),
+             ("hd 72 G 2", 8, 8, 4, 72, 16, 256),
+             ("hd 100 G 1", 8, 4, 4, 100, 16, 256))
+    for key, c, h, hkv, d, page, max_ctx in cases:
+        mb = max_ctx // page
+        for dt in (torch.bfloat16, torch.float32):
+            plan = ragged_plan_fields(b, c, h, hkv, d, page, max_ctx, dt)
+            edge = plan["stages_per_split"] * 64 if plan["splits"] > 1 \
+                else max_ctx // 2
+            starts = np.array([max_ctx - 1, 0,
+                               max(0, min(edge - c // 2, max_ctx - c)),
+                               5, 37, 0], np.int32)
+            lens = np.array([1, c, c, max(1, c // 2), 1, 0], np.int32)
+            nb = b * mb
+            tables = np.full((b, mb), nb, np.int32)
+            perm = rng.permutation(nb)
+            used = 0
+            for s_ in range(b):
+                n = -(-(int(starts[s_]) + int(lens[s_])) // page)
+                tables[s_, :n] = perm[used:used + n]
+                used += n
+            q = rand((b, c, h, d), dt, gen)
+            kp, vp = rand((nb, page, hkv, d), dt, gen), \
+                rand((nb, page, hkv, d), dt, gen)
+            tt, st, ln = (torch.from_numpy(a).cuda()
+                          for a in (tables, starts, lens))
+            rows = torch.arange(c, device="cuda")[None, :] < ln[:, None]
+            got = RA.ragged_paged_attention(q, kp, vp, tt, st, ln)
+            errs[f"{key} {dt}"] = compare(
+                key, got, RA.plain(q, kp, vp, tt, st, ln), dt, rows)
+            assert bool((got[~rows] == 0).all()), f"{key}: dead rows"
+            assert torch.equal(got, RA.ragged_paged_attention(
+                q, kp, vp, tt, st, ln)), f"{key}: two calls differ"
+            plans[f"{key} {dt}"] = plan
+    raised = []
+    for dt, d in ((torch.float16, 128), (torch.float32, 512)):
+        z = lambda *shape: torch.zeros(shape, dtype=dt, device="cuda")
+        i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device="cuda")
+        if not raises(lambda: RA.ragged_paged_attention(
+                z(1, 1, 1, d), z(1, 16, 1, d), z(1, 16, 1, d), i32([0]),
+                i32(0), i32(1))):
+            raise AssertionError(f"ragged_paged_attention took {dt} "
+                                 f"head_dim {d}")
+        raised.append(f"{dt} head_dim {d}")
+    log("ragged_edges " + json.dumps({"max_abs_err": errs, "plans": plans,
+                                      "raised": raised}))
     return errs
 
 
@@ -1133,7 +1250,8 @@ def new_kernel_rows(gen, rng):
     """The decode megakernel at the llama2-7b engine step (B=8, C=16,
     page 16, contexts up to 512) and at the llama2-70b GQA geometry; the
     grouped BGMV at the multi-LoRA step's three geometries and its sum
-    over one step's 224 calls; then both kernels' edge checks."""
+    over one step's 224 calls; then the megakernel's, BGMV's and ragged
+    attention's edge checks."""
     rows = []
     for geom, (h, nq, nk) in (("llama2-7b", (4096, 4096, 4096)),
                               ("llama2-70b-gqa", (8192, 8192, 1024))):
@@ -1151,10 +1269,12 @@ def new_kernel_rows(gen, rng):
             torch.cuda.empty_cache()
     for d_in, d_out, calls in LORA_STEP:
         for dt in (torch.bfloat16, torch.float32):
+            case = bgmv_case(d_in, d_out, dt, gen)
             rows.append(timed_row(
-                "grouped_bgmv", "llama2-7b", dt, bgmv_case(d_in, d_out, dt,
-                                                           gen),
-                {"shape": [d_in, d_out, LORA_RANK], "calls_per_step": calls}))
+                "grouped_bgmv", "llama2-7b", dt, case,
+                {"shape": [d_in, d_out, LORA_RANK], "calls_per_step": calls,
+                 "host_us": host_us(case[1]),
+                 **bgmv_plan_fields(8, 16, d_in, LORA_RANK, d_out, dt)}))
     part = [r for r in rows if r["name"] == "grouped_bgmv"
             and r["dtype"] == "bfloat16"]
     step = {"name": "grouped_bgmv", "geometry": "llama2-7b-step",
@@ -1162,7 +1282,7 @@ def new_kernel_rows(gen, rng):
             "calls_per_step": sum(r["calls_per_step"] for r in part),
             "max_abs_err": max(r["max_abs_err"] for r in part)}
     for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                "library_device_ms", "bound_ms"):
+                "library_device_ms", "bound_ms", "host_us"):
         step[key] = step_sum(part, key)
     by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in part
                    if r["bound_by"] == "bytes")
@@ -1172,6 +1292,7 @@ def new_kernel_rows(gen, rng):
     log("kernel " + json.dumps(step))
     mega_edge_checks(gen, rng)
     bgmv_edge_checks(gen)
+    ragged_edge_checks(gen, rng)
     return rows
 
 
@@ -1188,7 +1309,7 @@ def kernel_phase():
             ("fused_swiglu_mlp", lambda dt: mlp_case(128, 4096, 11008, dt,
                                                      gen)),
             ("ragged_paged_attention", lambda dt: attn_case(
-                8, 16, 32, 32, 128, 16, 512, dt, gen, rng)),
+                *RAGGED["llama2-7b"], dt, gen, rng)),
             ("flash_attention_fwd", lambda dt: flash_fwd_case(
                 2, 2048, 32, 32, 128, dt, tgen)),
             ("flash_attention_bwd", lambda dt: flash_bwd_case(
@@ -1202,7 +1323,7 @@ def kernel_phase():
             ("fused_swiglu_mlp", lambda dt: mlp_case(128, 8192, 28672, dt,
                                                      gen)),
             ("ragged_paged_attention", lambda dt: attn_case(
-                8, 16, 64, 8, 128, 16, 512, dt, gen, rng)),
+                *RAGGED["llama2-70b-gqa"], dt, gen, rng)),
             ("flash_attention_fwd", lambda dt: flash_fwd_case(
                 1, 2048, 64, 8, 128, dt, tgen)),
             ("flash_attention_bwd", lambda dt: flash_bwd_case(
@@ -1232,8 +1353,13 @@ def kernel_phase():
                        "bound_by": by}
                 if flash:
                     row["tflop_s"] = ops / row["ms"] * 1e-9
-                if name in ("fused_swiglu_mlp", "fused_rms_rope_qkv"):
+                if name in ("fused_swiglu_mlp", "fused_rms_rope_qkv",
+                            "ragged_paged_attention"):
                     row["device_ms"] = device_ms(kern)
+                if name == "ragged_paged_attention":
+                    row["library_device_ms"] = device_ms(library)
+                    row["host_us"] = host_us(kern)
+                    row.update(ragged_plan_fields(*RAGGED[geom], dt))
                 rows.append(row)
                 log("kernel " + json.dumps(row))
                 del kern, plain, library

@@ -40,6 +40,29 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// cudaFuncSetAttribute(Kern, Attr, value), made once per kernel,
+// attribute and device for the largest value asked so far: the attribute
+// outlives the call, and a kernel launched on every serving step pays for
+// each CUDA API call on the host.
+template <auto Kern, cudaFuncAttribute Attr>
+cudaError_t func_attr_once(int value) {
+  static int set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && value <= set[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kern, Attr, value);
+  if (e == cudaSuccess && dev < 64) set[dev] = value;
+  return e;
+}
+
+// Kern may use `bytes` of dynamic shared memory.
+template <auto Kern>
+cudaError_t allow_smem_once(size_t bytes) {
+  return func_attr_once<Kern, cudaFuncAttributeMaxDynamicSharedMemorySize>(
+      (int)bytes);
+}
+
 }  // namespace pt
 
 // The message of a CUDA error code returned by a `pt_*` entry point.

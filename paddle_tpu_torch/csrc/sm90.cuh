@@ -94,6 +94,43 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// The same without the transpose: lane l receives in r[i] matrix i's
+// elements (row l / 4, columns 2 (l % 4), 2 (l % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// ---- warp-level products (mma.sync) ----------------------------------------
+//
+// d (+)= A (16 x 16, bf16) . B (16 x 8, bf16) in f32, one warp.  Lane l,
+// g = l / 4, c = l % 4, holds
+//   a = {A[g][2c, 2c+1], A[g+8][2c, 2c+1], A[g][2c+8, 2c+9],
+//        A[g+8][2c+8, 2c+9]},   b = {B[2c, 2c+1][g], B[2c+8, 2c+9][g]},
+//   d = {D[g][2c], D[g][2c+1], D[g+8][2c], D[g+8][2c+1]}
+// (pairs packed low half first).  ldmatrix_x4 of a row-major 16 x 16
+// tile, lane l addressing row 8 ((l / 8) % 2) + l % 8 at column
+// 8 (l / 16), gives a; ldmatrix_x4_trans of a row-major (K, N) tile, lane
+// l addressing row 8 ((l / 8) % 2) + l % 8 at column n0 + 8 (l / 16),
+// gives b for columns n0 .. n0 + 7 in r[0], r[1] and n0 + 8 .. n0 + 15 in
+// r[2], r[3]; ldmatrix_x4 of an (N, K) tile (B's transpose), lane l
+// addressing row n0 + 8 (l / 16) + l % 8 at column 8 ((l / 8) % 2), gives
+// the same.  Two d fragments of adjacent 8-column blocks are, rounded
+// and packed, the a fragment of a product over those 16 columns
+// ({pack(d0[0], d0[1]), pack(d0[2], d0[3]), pack(d1[0], d1[1]),
+// pack(d1[2], d1[3])}).
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

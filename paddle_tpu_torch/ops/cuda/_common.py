@@ -1,7 +1,9 @@
-"""Argument checks shared by the kernel wrappers, and the plain versions'
-f32-accumulating product."""
+"""Argument checks shared by the kernel wrappers, their output-and-scratch
+allocation, and the plain versions' f32-accumulating product."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,8 +42,27 @@ def check(op: str, cond: bool, what: str) -> None:
 
 def check_dense(op: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
     """Every tensor contiguous, of ``dtype`` and 16-byte aligned (the
-    kernels load 16-byte vectors)."""
+    kernels load 16-byte vectors).  The messages are formatted only on
+    failure: a serving step calls the wrappers hundreds of times."""
     for name, t in tensors.items():
+        if t.dtype == dtype and t.is_contiguous() and t.data_ptr() % 16 == 0:
+            continue
         check(op, t.dtype == dtype, f"{name} is {t.dtype}, expected {dtype}")
         check(op, t.is_contiguous(), f"{name} is not contiguous")
-        check(op, t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+        check(op, False, f"{name} is not 16-byte aligned")
+
+
+def out_and_scratch(shape, dtype: torch.dtype, device, scratch_bytes: int):
+    """An uninitialised output of ``shape`` and, behind it in the same
+    allocation (256-byte aligned), ``scratch_bytes`` of kernel scratch:
+    one allocation per call instead of two, which the host pays for on
+    every launch.  Returns the output (a view of the allocation) and the
+    scratch's address (None without scratch)."""
+    if not scratch_bytes:
+        return torch.empty(shape, dtype=dtype, device=device), None
+    n = math.prod(shape)
+    item = dtype.itemsize
+    off = -(-n * item // 256) * 256
+    buf = torch.empty((off + scratch_bytes + item - 1) // item, dtype=dtype,
+                      device=device)
+    return buf[:n].view(shape), buf.data_ptr() + off

@@ -1,9 +1,12 @@
 """Grouped BGMV for batched multi-LoRA serving: ``x[b] @ A[idx[b]] @
-B[idx[b]]`` per batch slot, in one launch.
+B[idx[b]]`` per batch slot, in one call for the whole batch.
 
 The kernel is ``paddle_tpu_torch/csrc/lora_matmul.cu`` (CUDA C++ for
 sm_90a); it replaces the TPU kernel ``paddle_tpu/ops/pallas/lora_matmul.py``
-``grouped_bgmv``.  Its source note gives the bound and the design.
+``grouped_bgmv``.  Its source note gives the bound and the design: bf16
+runs one launch on the tensor cores, a thread-block cluster of 16 blocks
+per slot (:mod:`.bgmv_plan` chooses each block's d_in slice); f32 runs
+SIMT products.
 :func:`plain` is the same function in plain PyTorch, the twin of the JAX
 ``_lora_bgmv_ref``: each slot's adapter gathered by index, the shrink
 accumulated in f32 and rounded to x.dtype, the expand accumulated in f32
@@ -21,12 +24,12 @@ import torch
 
 from ._build import Kernel, dtype_code, stream_of
 from ._common import on_cuda
+from .bgmv_plan import MAX_RANK, bgmv_plan
 
 __all__ = ["KERNEL", "MAX_RANK", "grouped_bgmv", "plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = Kernel("lora_matmul", "pt_grouped_bgmv", [_P] * 5 + [_I] * 7 + [_P])
-MAX_RANK = 64
+KERNEL = Kernel("lora_matmul", "pt_grouped_bgmv", [_P] * 5 + [_I] * 8 + [_P])
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -72,10 +75,11 @@ def grouped_bgmv(x, a, b, idx):
             raise ValueError(f"{op}: {name} is not contiguous")
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"{op}: rank {r} not in [1, {MAX_RANK}]")
+    if bsz * c * d_out == 0 or d_in == 0:       # nothing to multiply
+        return torch.zeros((bsz, c, d_out), dtype=x.dtype, device=x.device)
+    plan = bgmv_plan(bsz, c, d_in, r, d_out, x.dtype)
     out = torch.empty((bsz, c, d_out), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
     KERNEL.launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), bsz, c, d_in, r, d_out, n,
+                  out.data_ptr(), bsz, c, d_in, r, d_out, n, plan.slice,
                   dtype_code(x.dtype), stream_of(x))
     return out

@@ -1,14 +1,16 @@
 """Ragged paged attention: every slot's token span attends its causal
-prefix through the slot's block table, in one launch for the whole
-serving batch.
+prefix through the slot's block table, in one call for the whole serving
+batch.
 
 The kernel is ``paddle_tpu_torch/csrc/ragged_attention.cu`` (CUDA C++ for
 sm_90a); it replaces the TPU kernel
 ``paddle_tpu/ops/pallas/ragged_attention.py`` ``ragged_paged_attention``.
-Its source note gives the bound and the design.  :func:`plain` is the
-same function in plain PyTorch: :func:`paged_gather_dense` then
-:func:`ragged_attend_dense`, the twins of the JAX ``_paged_gather_dense``
-and ``_ragged_attend_dense``.
+Its source note gives the bound and the design: bf16 runs on the tensor
+cores, its position splits chosen by :mod:`.ragged_plan` (the wrapper
+allocates the splits' f32 partials from the plan); f32 runs SIMT
+products.  :func:`plain` is the same function in plain PyTorch:
+:func:`paged_gather_dense` then :func:`ragged_attend_dense`, the twins of
+the JAX ``_paged_gather_dense`` and ``_ragged_attend_dense``.
 
 Layouts: q (B, C, H, D); pools (NB, page, H_kv, D); tables (B, MB) int32;
 starts/lens (B,) int32.  Rows ``j >= lens[b]`` are dead: the contract
@@ -25,16 +27,16 @@ from typing import Optional
 import torch
 
 from ._build import Kernel, dtype_code, stream_of
-from ._common import check, check_dense, on_cuda
+from ._common import check, check_dense, on_cuda, out_and_scratch
+from .mlp_plan import sm_count
+from .ragged_plan import ragged_plan
 
 __all__ = ["KERNEL", "paged_gather_dense", "plain", "ragged_attend_dense",
            "ragged_paged_attention", "span_write"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("ragged_attention", "pt_ragged_paged_attention",
-                [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P])
-# Hopper's shared memory a block may use (H100: 232,448 bytes)
-_SMEM_LIMIT = 232448
+                [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P])
 
 
 def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens):
@@ -120,21 +122,22 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts, lens,
     check_dense(op, q.dtype, q=q, k_pool=k_pool, v_pool=v_pool)
     check_dense(op, torch.int32, block_tables=block_tables, starts=starts,
                 lens=lens)
-    check(op, d2 == d and tuple(v_pool.shape) == tuple(k_pool.shape),
+    check(op, d2 == d and v_pool.shape == k_pool.shape,
           "pool shape mismatch")
-    check(op, h % h_kv == 0, f"{h} q heads over {h_kv} kv heads")
-    check(op, tuple(block_tables.shape) == (b, mb)
-          and tuple(starts.shape) == (b,) and tuple(lens.shape) == (b,),
-          "table/starts/lens shape mismatch")
-    smem = KERNEL.helper("pt_ragged_paged_attention_smem", [_I, _I],
-                         ctypes.c_longlong)(page, d)
-    check(op, smem <= _SMEM_LIMIT,
-          f"page {page} x head_dim {d} needs {smem} bytes of shared memory")
-    out = torch.empty_like(q)
+    if h % h_kv:
+        raise ValueError(f"{op}: {h} q heads over {h_kv} kv heads")
+    check(op, block_tables.shape == (b, mb) and starts.shape == (b,)
+          and lens.shape == (b,), "table/starts/lens shape mismatch")
     if b == 0 or c == 0:
-        return out
+        return torch.empty_like(q)
+    plan = ragged_plan(b, c, h, h_kv, d, page, mb, q.dtype,
+                       sm_count(q.device))
+    out, part = out_and_scratch(q.shape, q.dtype, q.device,
+                                plan.partial_bytes)
+    ml = None if part is None else part + plan.ml_offset
     KERNEL.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   block_tables.data_ptr(), starts.data_ptr(),
-                  lens.data_ptr(), out.data_ptr(), b, c, h, nb, page, h_kv,
-                  d, mb, float(scale), dtype_code(q.dtype), stream_of(q))
+                  lens.data_ptr(), out.data_ptr(), part, ml, b, c, h, nb,
+                  page, h_kv, d, mb, plan.splits, plan.per, float(scale),
+                  dtype_code(q.dtype), stream_of(q))
     return out
