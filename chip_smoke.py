@@ -60,7 +60,10 @@ Phases, each of which fails the run on its own (nothing is caught):
    128, page 16, ragged lengths up to 512), at the llama2-70b GQA shape
    and at edge cases (lengths 1, a page multiple, 512, a zero-length
    slot that must give zeros, head dims 128 and 64; library: SDPA over
-   the gathered KV);
+   the gathered KV), in bf16 and f32 and (gpt3-6.7b and the edges) f16,
+   each row with its device time, host time per call and plan (path,
+   spans, stages per span, grid blocks) and two calls bit-equal; an f16
+   head dim of 80 must raise;
 3. engine: llama2-7b in bf16, all 32 layers, random weights drawn on the
    card from a seeded generator, behind Engine(max_batch=8,
    max_seq_len=512, page_size=16): 8 staggered greedy requests, two of
@@ -157,6 +160,7 @@ from paddle_tpu_torch.ops.cuda.int8_plan import int8_plan
 from paddle_tpu_torch.ops.cuda.mega_plan import mega_plan
 from paddle_tpu_torch.ops.cuda.mlp_plan import (MAX_PARTIAL_BYTES, mlp_plan,
                                                 sm_count)
+from paddle_tpu_torch.ops.cuda.paged_plan import paged_plan
 from paddle_tpu_torch.ops.cuda.qkv_plan import qkv_plan
 from paddle_tpu_torch.ops.cuda.ragged_plan import ragged_plan
 from paddle_tpu_torch.ops.cuda.bgmv_plan import bgmv_plan
@@ -1985,10 +1989,18 @@ def paged_case(b, h, hkv, d, page, lens, dtype, gen, rng):
     got = kern()
     err = compare("paged_attn", got, plain(), dtype)
     assert bool((got[ln == 0] == 0).all()), "zero-length slot not zeros"
+    assert torch.equal(got, kern()), f"paged_attn {dtype}: two calls differ"
     it = q.element_size()
     nbytes = it * (2 * b * h * d + 2 * int(lens.sum()) * hkv * d) \
         + 4 * (b * mb + b)
     return err, kern, plain, library, nbytes, 4.0 * int(lens.sum()) * h * d
+
+
+def paged_plan_fields(b, h, hkv, d, page, lens, dtype):
+    p = paged_plan(b, h, hkv, d, page, -(-max(lens) // page) + 1, dtype,
+                   sm_count(torch.device("cuda")))
+    return {"path": p.path, "splits": p.splits, "stages_per_split": p.per,
+            "grid_blocks": p.grid_blocks}
 
 
 def gpt_kernel_rows(gen, rng):
@@ -1998,7 +2010,10 @@ def gpt_kernel_rows(gen, rng):
     of 128, page 16, ragged lengths up to 512), at the llama2-70b GQA
     shape (64 q heads over 8 kv heads) and at edge cases (lengths 1, an
     exact page multiple, the table's last position, a zero-length slot;
-    head dims 128 and 64).  bf16 and f32."""
+    head dims 128 and 64), each row with its plan and host time per call.
+    bf16 and f32; then f16 at the gpt3-6.7b and edge shapes (a generator
+    of their own, so the earlier rows keep their inputs), and an f16 head
+    dim of 80, which must raise."""
     rows = []
     for geom, (t, h, f) in (("gpt3-6.7b", (128, 4096, 16384)),
                             ("gpt3-13b", (128, 5120, 20480)),
@@ -2019,17 +2034,32 @@ def gpt_kernel_rows(gen, rng):
             continue
         raise AssertionError(f"fused_gelu_mlp took H={h} {dt}")
     ragged = [int(n) for n in rng.integers(1, 513, size=8)]
-    for geom, (b, h, hkv, d, lens) in (
-            ("gpt3-6.7b", (8, 32, 32, 128, ragged)),
-            ("llama2-70b-gqa", (8, 64, 8, 128, ragged)),
-            ("edges d=128", (8, 32, 32, 128, [1, 16, 64, 0, 37, 512, 3,
-                                              200])),
-            ("edges d=64", (6, 16, 16, 64, [1, 32, 0, 17, 512, 48]))):
-        for dt in (torch.bfloat16, torch.float32):
-            rows.append(timed_row("paged_attention", geom, dt,
-                                  paged_case(b, h, hkv, d, 16, lens, dt,
-                                             gen, rng),
-                                  {"lens": lens}))
+    paged = (("gpt3-6.7b", (8, 32, 32, 128, ragged)),
+             ("llama2-70b-gqa", (8, 64, 8, 128, ragged)),
+             ("edges d=128", (8, 32, 32, 128, [1, 16, 64, 0, 37, 512, 3,
+                                               200])),
+             ("edges d=64", (6, 16, 16, 64, [1, 32, 0, 17, 512, 48])))
+    hgen = torch.Generator(device="cuda").manual_seed(7)
+    hrng = np.random.default_rng(7)
+    for dts, g_, r_, geoms in (
+            ((torch.bfloat16, torch.float32), gen, rng, paged),
+            ((torch.float16,), hgen, hrng,
+             [c for c in paged if c[0] != "llama2-70b-gqa"])):
+        for geom, (b, h, hkv, d, lens) in geoms:
+            for dt in dts:
+                case = paged_case(b, h, hkv, d, 16, lens, dt, g_, r_)
+                rows.append(timed_row(
+                    "paged_attention", geom, dt, case,
+                    {"lens": lens, "host_us": host_us(case[1]),
+                     **paged_plan_fields(b, h, hkv, d, 16, lens, dt)}))
+                del case
+                torch.cuda.empty_cache()
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float16, device="cuda")
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    if not raises(lambda: PA.paged_attention(
+            z(1, 1, 80), z(1, 16, 1, 80), z(1, 16, 1, 80),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"), one)):
+        raise AssertionError("paged_attention took an f16 head dim of 80")
     return rows
 
 

@@ -38,11 +38,12 @@
 //   computed), each position's pool row found through the block table;
 //   positions past the last visible one are zero-filled, not read.
 // - S = Q K^T and P V run as mma.sync m16n8k16 in bf16 with f32 sums,
-//   operands by ldmatrix from padded rows (no bank conflicts).  The
-//   softmax runs in registers in the log2 domain, row maxima by quad
-//   shuffles.  P is rounded to bf16 in registers before P V (l sums the
-//   unrounded weights), as csrc/flash_attention.cu does; the bf16
-//   tolerance (2e-2) covers it.
+//   operands by ldmatrix from padded rows (no bank conflicts):
+//   csrc/attn_mma.cuh's `attn::chunk`, which the paged decode kernel
+//   shares.  The softmax runs in registers in the log2 domain, row maxima
+//   by quad shuffles.  P is rounded to bf16 in registers before P V (l
+//   sums the unrounded weights), as csrc/flash_attention.cu does; the
+//   bf16 tolerance (2e-2) covers it.
 // - The positions of a slot are cut into `splits` spans of `per` stages
 //   (ops/cuda/ragged_plan.py chooses them from the shapes alone, never
 //   from starts or lens, so a call never waits on the host).  A block
@@ -56,6 +57,7 @@
 // f32, and bf16 head dims the tensor-core path does not take (`simt::`):
 // one block per (slot, kv head, 64-row tile), one page at a time through
 // f32 shared memory, SIMT products.
+#include "attn_mma.cuh"
 #include "common.cuh"
 #include "mlp_gemm.cuh"
 #include "sm90.cuh"
@@ -64,7 +66,7 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using attn::kNegInf;
 
 namespace simt {
 
@@ -271,14 +273,7 @@ __device__ __forceinline__ size_t out_row(const Geo& G, int b, int hk,
   return ((size_t)(b * G.c + j) * G.h + hk * G.g + gq) * G.d;
 }
 
-__device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
-  uint4 u;
-  u.x = sm90::pack2<bf16>(v[0], v[1]);
-  u.y = sm90::pack2<bf16>(v[2], v[3]);
-  u.z = sm90::pack2<bf16>(v[4], v[5]);
-  u.w = sm90::pack2<bf16>(v[6], v[7]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
+using attn::store8;
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -358,8 +353,7 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  const uint32_t q_lane = sm90::smem_addr(
-      qs + (8 * ((lane / 8) % 2) + lane % 8) * LD + 8 * (lane / 16));
+  const uint32_t q_lane = attn::q_lane<LD>(qs, lane);
 
   load_stage(s_lo, 0);
   sm90::cp_async_commit();
@@ -374,71 +368,9 @@ ragged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int ch = warp; ch < kStage / kChunk; ch += kWarps) {
       const int p0 = st * kStage + ch * kChunk;
       if (p0 > tlim) break;                  // past every row's last position
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const uint32_t k_lane = sm90::smem_addr(
-          ks + (ch * kChunk + 8 * (lane / 16) + lane % 8) * LD +
-          8 * ((lane / 8) % 2));
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        if (kk * 16 >= G.d) break;
-        uint32_t a[4], bk[4];
-        sm90::ldmatrix_x4(a, q_lane + kk * 32);
-        sm90::ldmatrix_x4(bk, k_lane + kk * 32);
-        sm90::mma_16816(s[0], a, bk[0], bk[1]);
-        sm90::mma_16816(s[1], a, bk[2], bk[3]);
-      }
-      // mask, scale into the log2 domain, row maxima over the quad
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int pos = p0 + 8 * n + 2 * ci + (e & 1);
-          s[n][e] = pos <= lim[e >> 1] ? s[n][e] * scale_log2 : kNegInf;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_run[i], mx[i]);
-        alpha[i] = exp2f(m_run[i] - m_new);
-        m_run[i] = m_new;
-        l_run[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = s[n][e] == kNegInf
-                              ? 0.f : exp2f(s[n][e] - m_run[e >> 1]);
-          s[n][e] = p;
-          l_run[e >> 1] += p;
-        }
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-      // P (rounded to bf16) . V
-      const uint32_t pa[4] = {sm90::pack2<bf16>(s[0][0], s[0][1]),
-                              sm90::pack2<bf16>(s[0][2], s[0][3]),
-                              sm90::pack2<bf16>(s[1][0], s[1][1]),
-                              sm90::pack2<bf16>(s[1][2], s[1][3])};
-      const uint32_t v_lane = sm90::smem_addr(
-          vs + (ch * kChunk + 8 * ((lane / 8) % 2) + lane % 8) * LD +
-          8 * (lane / 16));
-#pragma unroll
-      for (int n2 = 0; n2 < DP / 16; ++n2) {
-        if (n2 * 16 >= G.d) break;
-        uint32_t bv[4];
-        sm90::ldmatrix_x4_trans(bv, v_lane + n2 * 32);
-        sm90::mma_16816(acc[2 * n2], pa, bv[0], bv[1]);
-        sm90::mma_16816(acc[2 * n2 + 1], pa, bv[2], bv[3]);
-      }
+      attn::chunk<bf16, DP, LD>(acc, m_run, l_run, q_lane,
+                                ks + ch * kChunk * LD, vs + ch * kChunk * LD,
+                                lane, G.d, p0, lim, scale_log2);
     }
     __syncthreads();             // the stage's buffer may be refilled
   }

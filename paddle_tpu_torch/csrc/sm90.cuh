@@ -105,7 +105,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 
 // ---- warp-level products (mma.sync) ----------------------------------------
 //
-// d (+)= A (16 x 16, bf16) . B (16 x 8, bf16) in f32, one warp.  Lane l,
+// d (+)= A (16 x 16) . B (16 x 8) in f32, one warp, A and B of the 16-bit
+// type T (bf16 unless named; f16 too).  Lane l,
 // g = l / 4, c = l % 4, holds
 //   a = {A[g][2c, 2c+1], A[g+8][2c, 2c+1], A[g][2c+8, 2c+9],
 //        A[g+8][2c+8, 2c+9]},   b = {B[2c, 2c+1][g], B[2c+8, 2c+9][g]},
@@ -121,11 +122,24 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 // and packed, the a fragment of a product over those 16 columns
 // ({pack(d0[0], d0[1]), pack(d0[2], d0[3]), pack(d1[0], d1[1]),
 // pack(d1[2], d1[3])}).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_16816(float (&d)[4],
                                           const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+                                          uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(
+    float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma_16816<__half>(
+    float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

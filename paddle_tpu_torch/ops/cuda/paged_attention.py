@@ -4,8 +4,13 @@ through the slot's block table, in one launch for the whole batch.
 The kernel is ``paddle_tpu_torch/csrc/paged_attention.cu`` (CUDA C++ for
 sm_90a); it replaces the TPU kernel
 ``paddle_tpu/ops/pallas/decode_attention.py`` ``paged_attention``.  Its
-source note gives the bound and the design.  :func:`plain` is the same
-function in plain PyTorch: ``ragged_attention.paged_gather_dense`` then
+source note gives the bound and the design: bf16 and f16 run on the
+tensor cores, f32 runs SIMT products, the context cut into spans by
+:mod:`.paged_plan` and the spans merged inside the same launch.  The
+spans' f32 partials and counters are allocated once per (plan, device,
+stream) and reused by every call (:func:`_launch_args`): the kernel
+leaves the counters at zero.  :func:`plain` is the same function in
+plain PyTorch: ``ragged_attention.paged_gather_dense`` then
 :func:`attend_dense_gqa`, the twins of the JAX ``_paged_gather_dense``
 and ``_attend_dense_gqa``, with the TPU kernel's rule for an empty
 context on top: a slot with ``lens == 0`` gives zeros (the dense
@@ -18,6 +23,7 @@ lens (B,) int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -25,14 +31,16 @@ import torch
 
 from ._build import Kernel, dtype_code, stream_of
 from ._common import check, check_dense, on_cuda
+from .mlp_plan import sm_count
+from .paged_plan import PagedPlan, paged_plan
 from .ragged_attention import paged_gather_dense
 
 __all__ = ["KERNEL", "attend_dense_gqa", "paged_attention", "plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "pt_paged_attention",
-                [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P])
-_HEAD_DIMS = (32, 64, 96, 128)
+                [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P])
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def attend_dense_gqa(q, k, v, context_lens, scale: float):
@@ -62,10 +70,47 @@ def plain(q, k_pool, v_pool, block_tables, lens,
     return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
 
 
+@functools.lru_cache(maxsize=32)
+def _launch_args(plan: PagedPlan, device, stream: int) -> tuple:
+    """The C entry point's (partials, (m, l), counters, splits, per) for
+    launches under ``plan`` on ``stream`` of ``device``, and the
+    scratch buffer behind the three addresses (None without spans to
+    merge): zeroed once, then reused by every such launch -- each leaves
+    its counters at zero again.  A buffer is freed with its cache entry;
+    it is only ever used on its own stream, so the allocator reuses it in
+    stream order."""
+    head = (None, None, None)
+    buf = None
+    if plan.scratch_bytes:
+        buf = torch.zeros(plan.scratch_bytes, dtype=torch.uint8,
+                          device=device)
+        part = buf.data_ptr()
+        head = (part, part + plan.ml_offset, part + plan.counter_offset)
+    return (*head, plan.splits, plan.per, buf)
+
+
+def launch(q, k_pool, v_pool, block_tables, lens, scale: float,
+           plan: PagedPlan):
+    """One launch of the kernel on checked CUDA tensors under ``plan``
+    (:func:`paged_attention` takes :func:`.paged_plan`'s; a timing tool
+    may pass other spans)."""
+    out = torch.empty_like(q)
+    stream = stream_of(q)
+    *args, _ = _launch_args(plan, q.device, stream)
+    b, h, d = q.shape
+    nb, page, h_kv, _ = k_pool.shape
+    KERNEL.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                  block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  *args[:3], b, h, nb, page, h_kv, d, plan.mb, *args[3:],
+                  float(scale), dtype_code(q.dtype, _DTYPES), stream)
+    return out
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, lens,
                     scale: Optional[float] = None):
     """q (B, H, D) over paged KV pools -> (B, H, D).  CUDA tensors launch
-    the kernel, CPU tensors run :func:`plain`."""
+    the kernel (f32, bf16 or f16; head dims 32, 64, 96, 128), CPU tensors
+    run :func:`plain`."""
     op = "paged_attention"
     if not on_cuda(op, q, k_pool, v_pool, block_tables, lens,
                    kernel=KERNEL):
@@ -77,17 +122,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens,
         scale = 1.0 / math.sqrt(d)
     check_dense(op, q.dtype, q=q, k_pool=k_pool, v_pool=v_pool)
     check_dense(op, torch.int32, block_tables=block_tables, lens=lens)
-    check(op, d2 == d and tuple(v_pool.shape) == tuple(k_pool.shape),
+    check(op, d2 == d and v_pool.shape == k_pool.shape,
           "pool shape mismatch")
-    check(op, d in _HEAD_DIMS, f"head_dim {d} not in {_HEAD_DIMS}")
-    check(op, h % h_kv == 0, f"{h} q heads over {h_kv} kv heads")
-    check(op, tuple(block_tables.shape) == (b, mb)
-          and tuple(lens.shape) == (b,), "table/lens shape mismatch")
-    out = torch.empty_like(q)
+    check(op, block_tables.shape == (b, mb) and lens.shape == (b,),
+          "table/lens shape mismatch")
     if b == 0:
-        return out
-    KERNEL.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                  block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  b, h, nb, page, h_kv, d, mb, float(scale),
-                  dtype_code(q.dtype), stream_of(q))
-    return out
+        return torch.empty_like(q)
+    plan = paged_plan(b, h, h_kv, d, page, mb, q.dtype, sm_count(q.device))
+    return launch(q, k_pool, v_pool, block_tables, lens, scale, plan)

@@ -6,7 +6,8 @@ with block tables.
 
 Tolerances: the attention op f32 rtol 1e-5 / atol 2e-5 (the same
 arithmetic in another summation order), bf16 rtol = atol = 1e-2 (one
-bf16 unit of the output); the models' logits and final pools f32
+bf16 unit of the output), f16 rtol = atol = 1e-2 (the f16 tolerance the
+kernels are held to on the card); the models' logits and final pools f32
 rtol = atol = 1e-4 (two layers and five calls of the same arithmetic).
 """
 
@@ -29,9 +30,11 @@ from paddle_tpu_torch.ops.cuda import paged_attention as TPA
 
 F32_TOL = dict(rtol=1e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+F16_TOL = dict(rtol=1e-2, atol=1e-2)
 TOL = dict(rtol=1e-4, atol=1e-4)
 DTYPES = {"float32": (jnp.float32, torch.float32, F32_TOL),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL),
+          "float16": (jnp.float16, torch.float16, F16_TOL)}
 
 
 def _decode_inputs(rng, b, h, hkv, d, page, nb, mb, lens):
@@ -51,7 +54,7 @@ def _decode_inputs(rng, b, h, hkv, d, page, nb, mb, lens):
     return q, kp, vp, tables
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
 def test_paged_attention_plain_matches_jax(dtype, h, hkv):
     """Partial pages, an exact page multiple, a single position, a slot
