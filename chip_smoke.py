@@ -76,8 +76,21 @@ Phases, each of which fails the run on its own (nothing is caught):
    the fused QKV/MLP kernels 0; weight bytes on the card against bf16;
    then gpt3-6.7b in bf16, all 32 layers, behind the same engine and
    traffic (gpt_engine: 32 fused GELU-MLP and 32 ragged-attention
-   launches per step, none of the Llama kernels), and the same model on
-   the bucket-prefill/decode path (gpt_paged: pools from PagedKVCache,
+   launches per step, none of the Llama kernels); the mega and
+   multi-LoRA engines (mega_engine, lora_engine) likewise.  Every one of
+   these six engines replays its step from the CUDA graph captured at
+   warmup: each must show one capture after warmup and after its
+   traffic, one replay per step, the launch counts above (a replay
+   credits the launches recorded at capture), and streams equal, under
+   the near-tie rule with at most one request exempt (its step and
+   margin printed), to an eager twin on the same model
+   (Engine(_eager_step=True)) that serves the same traffic; each line's
+   "graph" block then holds both engines' step ms in turns (captured,
+   eager, eager, captured, no profiler), the replays' device ms by CUDA
+   events and the host's ms per step outside them, and both engines'
+   8-step profiles (device busy ms and idle share, the captured one
+   cross-checked by events around its replays); gpt3-6.7b also runs on
+   the bucket-prefill/decode path, uncaptured (gpt_paged: pools from PagedKVCache,
    tables from its allocator padded with the sentinel; the 8 prompts in
    one prefill call through the flash forward kernel, then 32 greedy
    decode calls of 32 paged-attention launches each; how many leading
@@ -109,7 +122,8 @@ Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
 quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, quant_engine,
 gpt_engine, gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
-train, train_cross_check), the card's name and power limit, a
+train, train_cross_check; smoke: the run's wall seconds from the
+build's start), the card's name and power limit, a
 {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  The QKV, SwiGLU, int8, int4, megakernel, BGMV and ragged attention
 rows carry `device_ms`, the card's time per call with the host out of
@@ -1445,6 +1459,8 @@ def profile_steps(eng, rng, n_steps: int = 8, adapters=(None,)):
             request_id=f"prof{i}", adapter=adapters[i % len(adapters)])
     eng.step()
     torch.cuda.synchronize()
+    graph = eng._graph
+    graph.replay_events = [] if graph.capture else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1452,8 +1468,121 @@ def profile_steps(eng, rng, n_steps: int = 8, adapters=(None,)):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events, graph.replay_events = graph.replay_events, None
     eng.run()
-    return profile_summary(prof, wall_ms, n_steps)
+    res = profile_summary(prof, wall_ms, n_steps)
+    res["captured"] = graph.capture
+    if events:
+        # the graph's device time by CUDA events around each replay: a
+        # check on the trace's busy time, which has lost kernels before
+        res["replay_events_ms_per_step"] = replay_ms(events) / n_steps
+    return res
+
+
+def replay_ms(events) -> float:
+    return sum(start.elapsed_time(end) for start, end in events)
+
+
+def timed_window(eng, seed, n_steps=8, adapters=(None,)):
+    """Step ms over ``n_steps`` steps of a fresh full batch (profile_steps'
+    traffic, drawn from ``seed``) after one untimed step, no profiler;
+    for a captured engine also the replays' device ms (CUDA events) and
+    the host's ms per step outside them (step ms less the replay's device
+    ms: the host waits for the replay at sampling)."""
+    rng = np.random.default_rng(seed)
+    for i in range(8):
+        eng.add_request(rng.integers(0, 32000, size=int(
+            rng.integers(17, 301))), max_new_tokens=32,
+            request_id=f"turn{seed}_{i}", adapter=adapters[i % len(adapters)])
+    eng.step()
+    torch.cuda.synchronize()
+    graph = eng._graph
+    graph.replay_events = [] if graph.capture else None
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    row = {"step_ms": (time.perf_counter() - t0) * 1e3 / n_steps}
+    events, graph.replay_events = graph.replay_events, None
+    eng.run()
+    if events:
+        row["replay_device_ms"] = replay_ms(events) / n_steps
+        row["host_ms_outside_replay"] = row["step_ms"] - \
+            row["replay_device_ms"]
+    return row
+
+
+def streams_vs_eager(ref, got, margins):
+    """Every request's stream of the captured engine against the eager
+    engine's under the near-tie rule, at most one request exempt; the
+    exempt request's first differing step and the eager margin there."""
+    exempt = {}
+    assert sorted(got) == sorted(ref), (sorted(got), sorted(ref))
+    for rid in ref:
+        if near_tie_equal(ref[rid], got[rid], margins[rid]) == "exempt":
+            i = next(i for i, (r, g) in enumerate(zip(ref[rid], got[rid]))
+                     if r != g)
+            exempt[rid] = {"step": i, "margin": margins[rid][i]}
+    assert len(exempt) <= 1, exempt
+    return {"requests": len(ref), "equal": len(ref) - len(exempt),
+            "exempt": exempt}
+
+
+def graph_vs_eager(eng, eager, steps, replays, out, eager_out,
+                   adapters=(None,), seed=20):
+    """The captured engine after its counted traffic (``steps`` steps,
+    ``replays`` replays) against an eager twin (the same model,
+    ``Engine(_eager_step=True)``) that served the same traffic with
+    margins on: one capture, a replay per step, the same launches per
+    step, equal streams; then step ms of both in turns (captured, eager,
+    eager, captured; each pair on one fresh batch)."""
+    assert eng.captures == 1, eng.captures
+    assert replays == steps, (replays, steps)
+    assert (eager.captures, eager.replays) == (0, 0)
+    assert eager.launches_per_step() == eng.launches_per_step(), \
+        (eager.launches_per_step(), eng.launches_per_step())
+    res = {"captured": eng._graph.capture, "captures": eng.captures,
+           "replays": steps,
+           "streams_vs_eager": streams_vs_eager(eager_out, out,
+                                                eager.margins)}
+    turns = []
+    for i, (tag, e) in enumerate((("captured", eng), ("eager", eager),
+                                  ("eager", eager), ("captured", eng))):
+        row = timed_window(e, seed + i // 2, adapters=adapters)
+        turns.append({"engine": tag, **row})
+    assert eng.captures == 1, eng.captures
+    mean = lambda tag, key: statistics.mean(r[key] for r in turns
+                                            if r["engine"] == tag)
+    res.update({"turns": turns,
+                "captured_step_ms": mean("captured", "step_ms"),
+                "eager_step_ms": mean("eager", "step_ms"),
+                "replay_device_ms": mean("captured", "replay_device_ms"),
+                "host_ms_outside_replay":
+                    mean("captured", "host_ms_outside_replay")})
+    return res
+
+
+def eager_twin(model, serve_fn, **kw):
+    """An eager engine (``Engine(_eager_step=True)``, margins on) on
+    ``model`` through ``serve_fn``'s traffic; returns it and its
+    outputs."""
+    eager = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
+                   _eager_step=True, **kw).warmup()
+    eager.margins = {}
+    return eager, serve_fn(eager)
+
+
+def graph_phase(res, eng, eager, steps, replays, out, eager_out,
+                adapters=(None,)):
+    """``res`` gains the captured-against-eager block (graph_vs_eager) and
+    both engines' profiles over one fresh batch each."""
+    res["graph"] = graph_vs_eager(eng, eager, steps, replays, out,
+                                  eager_out, adapters=adapters)
+    res["profile"] = profile_steps(eng, np.random.default_rng(3),
+                                   adapters=adapters)
+    res["graph"]["eager_profile"] = profile_steps(
+        eager, np.random.default_rng(3), adapters=adapters)
+    assert eng.captures == 1, eng.captures
 
 
 # the fused MLP kernels' names in a trace: the up kernels of
@@ -1495,15 +1624,16 @@ def engine_phase():
     torch.cuda.synchronize()
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
     setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
     rng = np.random.default_rng(1)
     reset_launches()
-    steps0 = eng.steps
+    steps0, replays0 = eng.steps, eng.replays
     t1 = time.perf_counter()
     reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {k: v for k, v in kernel_launches().items() if k in SERVING}
-    steps = eng.steps - steps0
+    steps, replays = eng.steps - steps0, eng.replays - replays0
     layers = model.cfg.num_hidden_layers
     stats = eng.prefix_stats()
     assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
@@ -1519,9 +1649,11 @@ def engine_phase():
            "step_ms": wall / steps * 1e3, "prefix": stats,
            "launches": launches, "layers": layers,
            "prompt_tokens": int(sum(len(p) for p, _ in reqs.values()))}
-    res["profile"] = profile_steps(eng, rng)
+    eager, (_, eager_out) = eager_twin(model, lambda e: serve(
+        e, np.random.default_rng(1), 5, 17, 300, 16, 32))
+    graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("engine " + json.dumps(res))
-    del eng, model
+    del eng, eager, model
     torch.cuda.empty_cache()
     return res
 
@@ -1544,6 +1676,7 @@ def quant_engine_phase(kind):
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
                  weight_quant=kind).warmup()
     setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
     qlin = [m for m in model.modules() if isinstance(m, Q.QuantizedLinear)]
     layers = model.cfg.num_hidden_layers
     per_step = 7 * layers + 1
@@ -1560,13 +1693,13 @@ def quant_engine_phase(kind):
            "kv_pool_bytes": kv_bytes}
     rng = np.random.default_rng(1)
     reset_launches()
-    steps0 = eng.steps
+    steps0, replays0 = eng.steps, eng.replays
     t1 = time.perf_counter()
     reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = kernel_launches()
-    steps = eng.steps - steps0
+    steps, replays = eng.steps - steps0, eng.replays - replays0
     stats = eng.prefix_stats()
     assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
     for rid, (_, n) in reqs.items():
@@ -1585,9 +1718,13 @@ def quant_engine_phase(kind):
            "step_ms": wall / steps * 1e3, "prefix": stats,
            "launches": got, "launches_per_step": per_step,
            "memory": mem}
-    res["profile"] = profile_steps(eng, rng)
+    assert eng.launches_per_step()[name] == per_step
+    # the model is quantized already: the twin serves it as it is
+    eager, (_, eager_out) = eager_twin(model, lambda e: serve(
+        e, np.random.default_rng(1), 5, 17, 300, 16, 32))
+    graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("quant_engine " + json.dumps(res))
-    del eng, model, qlin
+    del eng, eager, model, qlin
     torch.cuda.empty_cache()
     return res
 
@@ -1689,14 +1826,15 @@ def mega_engine_phase():
     torch.cuda.synchronize()
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
     setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
     rng = np.random.default_rng(1)
     reset_launches()
-    steps0 = eng.steps
+    steps0, replays0 = eng.steps, eng.replays
     t1 = time.perf_counter()
     reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    steps = eng.steps - steps0
+    steps, replays = eng.steps - steps0, eng.replays - replays0
     layers = model.cfg.num_hidden_layers
     stats = eng.prefix_stats()
     assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
@@ -1716,9 +1854,11 @@ def mega_engine_phase():
            "tok_s": eng.tokens_emitted / wall,
            "step_ms": wall / steps * 1e3, "prefix": stats,
            "launches_per_step": got, "launches": totals}
-    res["profile"] = profile_steps(eng, rng)
+    eager, (_, eager_out) = eager_twin(model, lambda e: serve(
+        e, np.random.default_rng(1), 5, 17, 300, 16, 32))
+    graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("mega_engine " + json.dumps(res))
-    del eng, model
+    del eng, eager, model
     torch.cuda.empty_cache()
     return res
 
@@ -1729,9 +1869,10 @@ def stack_ptrs(pool):
 
 
 def serve_lora(eng, rng, vocab, max_new=(16, 32), prompt_hi=120):
-    """Multi-LoRA traffic: two base requests; adapter "ad0" twice, the
-    second sharing the first's 64-token prefix after it finished (prefix
-    hits within an adapter); one prompt X under "ad1" and, after it
+    """Multi-LoRA traffic: two base requests; adapter "ad0" three times,
+    the second sharing the first's 64-token prefix after it finished
+    (prefix hits within an adapter), the third the bare prefix (fully
+    cached: copy-on-write); one prompt X under "ad1" and, after it
     finished, under "ad2" (no hit across adapters); one more request on
     each of "ad1" and "ad2".  Returns {id: (prompt, max_new, adapter)},
     the outputs, and the page hits of the two second-arrivals."""
@@ -1756,7 +1897,8 @@ def serve_lora(eng, rng, vocab, max_new=(16, 32), prompt_hi=120):
         eng.step()
     hits = {}
     for rid, prompt, adapter in (("a0q", np.concatenate([prefix, rnd(30)]),
-                                  "ad0"), ("a2x", x_prompt.copy(), "ad2")):
+                                  "ad0"), ("a2x", x_prompt.copy(), "ad2"),
+                                 ("a0r", prefix.copy(), "ad0")):
         h0 = eng.prefix_stats()["hits"]
         add(rid, prompt, adapter)
         eng._admit_all()
@@ -1795,21 +1937,23 @@ def lora_engine_phase():
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
                  lora=pool).warmup()
     setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
     ptrs = stack_ptrs(pool)
     layers = model.cfg.num_hidden_layers
     rng = np.random.default_rng(1)
     reset_launches()
-    steps0 = eng.steps
+    steps0, replays0 = eng.steps, eng.replays
     t1 = time.perf_counter()
     reqs, out, hits = serve_lora(eng, rng, model.cfg.vocab_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    steps = eng.steps - steps0
-    assert sorted(out) == sorted(reqs) and len(reqs) == 8, sorted(out)
+    steps, replays = eng.steps - steps0, eng.replays - replays0
+    assert sorted(out) == sorted(reqs) and len(reqs) == 9, sorted(out)
     for rid, (_, n, _) in reqs.items():
         assert len(out[rid]) == n, (rid, len(out[rid]), n)
     assert eng.kv_blocks_used == 0, eng.kv_blocks_used
     assert hits["a0q"] > 0 and hits["a2x"] == 0, hits
+    assert eng.prefix_stats()["cow_copies"] > 0, eng.prefix_stats()
     per_step = {"grouped_bgmv": 7 * layers, "ragged_paged_attention": layers,
                 "fused_rms_rope_qkv": 0, "fused_swiglu_mlp": 0,
                 "mega_decode": 0}
@@ -1818,6 +1962,11 @@ def lora_engine_phase():
     launches = kernel_launches()
     totals = {k: launches[k] for k in per_step}
     assert totals == {k: v * steps for k, v in per_step.items()}, totals
+    # the same traffic through an eager twin, before the churn below
+    # evicts one of its adapters
+    eager, (_, eager_out, _) = eager_twin(
+        model, lambda e: serve_lora(e, np.random.default_rng(1),
+                                    model.cfg.vocab_size), lora=pool)
     # base streams against a LoRA-less engine on the same model and path
     ref, margins = base_streams(model, reqs)
     verdicts = {rid: near_tie_equal(ref[rid], out[rid], margins[rid])
@@ -1844,12 +1993,12 @@ def lora_engine_phase():
            "base_vs_lora_less": verdicts, "adapter_changed_stream": changed,
            "lora_stack_bytes": pool.nbytes(), "lora_scale": LORA_SCALE,
            "pool": pool.stats(), "stack_ptrs_unchanged": True}
-    # the window's batch: six adapted requests over three adapters, two
-    # base
-    res["profile"] = profile_steps(eng, rng,
-                                   adapters=(None, "ad0", "ad1", "ad3"))
+    # the windows' batches: six adapted requests over three adapters,
+    # two base
+    graph_phase(res, eng, eager, steps, replays, out, eager_out,
+                adapters=(None, "ad0", "ad1", "ad3"))
     log("lora_engine " + json.dumps(res))
-    del eng, model, pool
+    del eng, eager, model, pool
     torch.cuda.empty_cache()
     return res
 
@@ -1922,7 +2071,7 @@ def lora_cross_check_phase():
         outs["gpu"]
     verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
                 for rid in ref}
-    assert sorted(got) == sorted(ref) and len(ref) == 8
+    assert sorted(got) == sorted(ref) and len(ref) == 9
     assert rstats == gstats, (rstats, gstats)
     base, bmargins = base_streams(gpu, reqs, max_batch=4)
     base_verdicts = {rid: near_tie_equal(base[rid], got[rid], bmargins[rid])
@@ -2161,14 +2310,15 @@ def gpt_engine_phase():
     torch.cuda.synchronize()
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
     setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
     rng = np.random.default_rng(1)
     reset_launches()
-    steps0 = eng.steps
+    steps0, replays0 = eng.steps, eng.replays
     t1 = time.perf_counter()
     reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    steps = eng.steps - steps0
+    steps, replays = eng.steps - steps0, eng.replays - replays0
     layers = model.cfg.num_hidden_layers
     stats = eng.prefix_stats()
     assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
@@ -2191,9 +2341,11 @@ def gpt_engine_phase():
            "launches_per_step": got, "launches": totals, "layers": layers,
            "weight_bytes": tensor_bytes(model.parameters()),
            "prompt_tokens": int(sum(len(p) for p, _ in reqs.values()))}
-    res["profile"] = profile_steps(eng, rng)
+    eager, (_, eager_out) = eager_twin(model, lambda e: serve(
+        e, np.random.default_rng(1), 5, 17, 300, 16, 32))
+    graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("gpt_engine " + json.dumps(res))
-    del eng
+    del eng, eager
     torch.cuda.empty_cache()
     return res, model, reqs, out
 
@@ -2573,6 +2725,7 @@ def main() -> int:
          "bound_by": main_rows[name]["bound_by"],
          "library_ms": main_rows[name]["library_ms"]}
         for name, src, rep in KERNELS]}
+    log("smoke " + json.dumps({"wall_s": time.perf_counter() - t0}))
     log(f"card: {smi}")
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

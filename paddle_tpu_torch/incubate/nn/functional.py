@@ -170,12 +170,14 @@ def _paged_span_write(cache, k, v, block_tables, span_starts, span_lens):
     """Write a token span ``k``/``v`` (B, C, H_kv, D) into the layer's
     pool pair ``cache`` at positions ``[span_starts, span_starts +
     span_lens)`` of each slot (``ops/cuda/ragged_attention.span_write``:
-    dead rows and sentinel table entries never touch the pools).  In
-    place; returns ``cache``."""
+    dead rows and sentinel table entries never touch the pools; a
+    ``PoolPair`` with spare rows takes the write that never syncs the
+    host).  In place; returns ``cache`` itself."""
     if len(cache) != 2:
         raise NotImplementedError(_INT8_POOLS)
-    return _ra.span_write(cache[0], cache[1], k, v, block_tables,
-                          span_starts, span_lens)
+    _ra.span_write(cache[0], cache[1], k, v, block_tables, span_starts,
+                   span_lens, rows=getattr(cache, "rows", None))
+    return cache
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens,

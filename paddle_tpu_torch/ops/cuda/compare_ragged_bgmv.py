@@ -40,16 +40,16 @@ seeded random weights) behind ``Engine(max_batch=8, max_seq_len=512,
 page_size=16)`` with a ``LoRAPool`` of three rank-16 adapters serves 8
 greedy requests (prompts of 17-120 tokens, 32 new tokens each, two base
 requests and two on each adapter) once per turn -- this tree, the other,
-the other, this tree, this tree, the other -- with the engine's
-ragged-attention and BGMV calls going to that tree's own wrappers (the
-other package imported under another name, its kernels built from its
-own sources), so a turn pays its tree's host cost too (each turn's prompts
-are fresh tokens of the same lengths, so no turn hits another's prefix
-pages).  Each turn prints its steps, step ms (host wall time over the
-steps, ending in a synchronize), tokens/s and the host's time inside the
-two kernels' calls per step; two more turns, one per tree, run under
-``torch.profiler`` and add the device's busy ms per step (the union of
-the kernels' intervals).
+the other, this tree, this tree, the other.  Each tree has its own
+engine on the one model and pool, whose step was captured into its CUDA
+graph with the engine's ragged-attention and BGMV calls going to that
+tree's own wrappers (the other package imported under another name, its
+kernels built from its own sources), so its replays run that tree's
+kernels (each turn's prompts are fresh tokens of the same lengths, so no
+turn hits another's prefix pages).  Each turn prints its steps, step ms
+(host wall time over the steps, ending in a synchronize) and tokens/s;
+two more turns, one per tree, run under ``torch.profiler`` and add the
+device's busy ms per step (the union of the kernels' intervals).
 """
 
 from __future__ import annotations
@@ -227,67 +227,58 @@ def engine_turns(other_root: Path,
     arng = np.random.default_rng(5)
     for name in ("ad0", "ad1", "ad2"):
         pool.load(name, random_adapter(model, rank=16, rng=arng, scale=0.05))
-    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
-                 lora=pool).warmup()
     vocab = model.cfg.vocab_size
     lengths = np.random.default_rng(7).integers(17, 121, size=8)
     adapters = (None, "ad0", "ad1", "ad2") * 2
-    in_calls = [0.0]
-
-    def timed(fn):
-        def call(*args, **kw):
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            in_calls[0] += time.perf_counter() - t
-            return out
-        return call
     saved = (ragged_attention.ragged_paged_attention,
              lora_matmul.grouped_bgmv)
-    wrappers = {"this": tuple(timed(f) for f in saved),
-                "other": (timed(other.ragged_attention.ragged_paged_attention),
-                          timed(other.lora_matmul.grouped_bgmv))}
+    wrappers = {"this": saved,
+                "other": (other.ragged_attention.ragged_paged_attention,
+                          other.lora_matmul.grouped_bgmv)}
+    engines = {}
+    try:
+        # each tree's engine captures its step with that tree's wrappers,
+        # so its graph replays that tree's kernels
+        for name in wrappers:
+            (ragged_attention.ragged_paged_attention,
+             lora_matmul.grouped_bgmv) = wrappers[name]
+            engines[name] = Engine(model, max_batch=8, max_seq_len=512,
+                                   page_size=16, lora=pool).warmup()
+    finally:
+        (ragged_attention.ragged_paged_attention,
+         lora_matmul.grouped_bgmv) = saved
 
     def serve(i, name):
-        (ragged_attention.ragged_paged_attention,
-         lora_matmul.grouped_bgmv) = wrappers[name]
+        eng = engines[name]
         rng = np.random.default_rng(100 + i)
         for k in range(8):
             eng.add_request(rng.integers(0, vocab, size=int(lengths[k])),
                             max_new_tokens=32, request_id=f"t{i}r{k}",
                             adapter=adapters[k])
         torch.cuda.synchronize()
-        in_calls[0] = 0.0
         steps0, t0 = eng.steps, time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = eng.steps - steps0
-        row = {"engine": "multi-lora llama2-7b", "turn": i, "tree": name,
-               "steps": steps, "step_ms": wall / steps * 1e3,
-               "tok_s": 8 * 32 / wall,
-               "host_ms_in_kernel_calls_per_step": in_calls[0] / steps * 1e3}
-        return row
-    try:
-        for j, name in enumerate(wrappers):        # build, load, warm up
-            (ragged_attention.ragged_paged_attention,
-             lora_matmul.grouped_bgmv) = wrappers[name]
-            eng.add_request(np.arange(1, 40), max_new_tokens=4,
-                            request_id=f"warm{j}", adapter="ad0")
-            eng.run()
-        for i, name in enumerate(turns):
-            print(json.dumps(serve(i, name)), flush=True)
-        for j, name in enumerate(("this", "other")):
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                row = serve(len(turns) + j, name)
-            row["device_busy_ms_per_step"] = union_ms(
-                device_events(prof)) / row["steps"]
-            print(json.dumps(row), flush=True)
-    finally:
-        (ragged_attention.ragged_paged_attention,
-         lora_matmul.grouped_bgmv) = saved
-    del eng, model, pool
+        return {"engine": "multi-lora llama2-7b", "turn": i, "tree": name,
+                "steps": steps, "step_ms": wall / steps * 1e3,
+                "tok_s": 8 * 32 / wall, "captures": eng.captures}
+    for j, name in enumerate(wrappers):            # warm up the replays
+        engines[name].add_request(np.arange(1, 40), max_new_tokens=4,
+                                  request_id=f"warm{j}", adapter="ad0")
+        engines[name].run()
+    for i, name in enumerate(turns):
+        print(json.dumps(serve(i, name)), flush=True)
+    for j, name in enumerate(wrappers):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            row = serve(len(turns) + j, name)
+        row["device_busy_ms_per_step"] = union_ms(
+            device_events(prof)) / row["steps"]
+        print(json.dumps(row), flush=True)
+    del engines, model, pool
     torch.cuda.empty_cache()
 
 

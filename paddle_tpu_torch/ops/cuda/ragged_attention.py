@@ -31,21 +31,75 @@ from ._common import check, check_dense, on_cuda, out_and_scratch
 from .mlp_plan import sm_count
 from .ragged_plan import ragged_plan
 
-__all__ = ["KERNEL", "paged_gather_dense", "plain", "ragged_attend_dense",
-           "ragged_paged_attention", "span_write"]
+__all__ = ["KERNEL", "PoolPair", "paged_gather_dense", "plain",
+           "pool_pair", "ragged_attend_dense", "ragged_paged_attention",
+           "span_write"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("ragged_attention", "pt_ragged_paged_attention",
                 [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P])
 
 
-def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens):
+class PoolPair(tuple):
+    """A decoder layer's ``(k, v)`` paged pools, (NB, page, H_kv, D) each,
+    whose storage holds spare rows of (H_kv, D) behind the NB * page rows
+    of each pool: the dead rows of :func:`span_write` land there.
+    ``rows`` is ``(k_rows, v_rows)``, each (NB * page + spare, H_kv, D);
+    the pools are their leading views, with a fresh tensor's strides.
+    Make one with :func:`pool_pair`."""
+
+    rows: tuple
+
+
+def pool_pair(num_blocks: int, page: int, h_kv: int, d: int, spare: int,
+              dtype, device) -> PoolPair:
+    """Zeroed pools (NB, page, H_kv, D) with ``spare`` hidden rows behind
+    each (:class:`PoolPair`)."""
+    rows = tuple(torch.zeros((num_blocks * page + spare, h_kv, d),
+                             dtype=dtype, device=device) for _ in range(2))
+    pair = PoolPair(r[:num_blocks * page].view(num_blocks, page, h_kv, d)
+                    for r in rows)
+    pair.rows = rows
+    return pair
+
+
+def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens,
+               rows=None):
     """Write a token span ``k``/``v`` (B, C, H_kv, D) into the paged pools
     at positions ``[span_starts, span_starts + span_lens)`` of each slot.
-    Rows ``>= span_lens`` (chunk padding, idle slots) are masked out
-    before any index is formed, so neither they nor a sentinel table
-    entry ever touch the pools.  In place; returns the pools.  (The
-    ``nonzero()`` syncs the host with the card once per call.)"""
+    Rows ``>= span_lens`` (chunk padding, idle slots) are dead: neither
+    they nor a sentinel table entry ever change a pool element.  In
+    place; returns the pools.
+
+    With ``rows`` (:attr:`PoolPair.rows`) holding at least B * C spare
+    rows, the write is fixed-shape index arithmetic over all B * C rows
+    and one ``index_copy_`` per pool: row ``(b, j)`` goes to its page
+    slot when it is live and its table entry is in range, else to spare
+    row ``b * C + j``, so no two rows share a target and nothing syncs the
+    host (the engine's captured step takes this path).  Without them the
+    dead rows are masked out by ``nonzero()``, which syncs the host with
+    the card once per call (pools that callers allocate themselves)."""
+    b, s = k.shape[:2]
+    nb, bs = k_pool.shape[:2]
+    if rows is None or rows[0].shape[0] - nb * bs < b * s:
+        return _masked_span_write(k_pool, v_pool, k, v, block_tables,
+                                  span_starts, span_lens)
+    mb = block_tables.shape[1]
+    ar = torch.arange(s, device=k.device)
+    pos = span_starts.long()[:, None] + ar[None, :]              # (B, C)
+    blk = block_tables.long().gather(1, torch.clamp(pos // bs, max=mb - 1))
+    live = (ar[None, :] < span_lens.long()[:, None]) & (blk >= 0) & \
+        (blk < nb)
+    spare = nb * bs + torch.arange(b * s, device=k.device).view(b, s)
+    idx = torch.where(live, blk * bs + pos % bs, spare).view(-1)
+    for dst, src in zip(rows, (k, v)):
+        dst.index_copy_(0, idx, src.reshape(b * s, *src.shape[2:])
+                        .to(dst.dtype))
+    return k_pool, v_pool
+
+
+def _masked_span_write(k_pool, v_pool, k, v, block_tables, span_starts,
+                       span_lens):
     s = k.shape[1]
     bs = k_pool.shape[1]
     mb = block_tables.shape[1]

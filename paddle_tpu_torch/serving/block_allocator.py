@@ -45,6 +45,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.cuda.ragged_attention import pool_pair
+
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache"]
 
 
@@ -256,13 +258,19 @@ class PagedKVCache:
     ``caches`` is a list (one entry per decoder layer) of ``(k, v)`` pool
     pairs of shape ``(num_blocks, page, H_kv, D)`` on ``device`` -- the
     reference's fp layout, which the kernels and the plain versions
-    share.  The engine's step writes them IN PLACE.  int8 pools and the
-    tensor-parallel layout are not ported yet (ROADMAP.md).
+    share.  The engine's step writes them IN PLACE.  Each pair is an
+    ``ops.cuda.ragged_attention.PoolPair`` whose storage holds
+    ``spare_rows`` hidden rows behind each pool: with at least B x C of
+    them (the engine asks for its step's), the span write sends dead
+    rows there instead of masking them on the host, so the step never
+    syncs.  The pools keep a fresh tensor's strides and contents.  int8
+    pools and the tensor-parallel layout are not ported yet
+    (ROADMAP.md).
     """
 
     def __init__(self, num_layers: int, num_blocks: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device=None):
+                 device=None, spare_rows: int = 0):
         if page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
@@ -274,10 +282,9 @@ class PagedKVCache:
         self.page_size = int(page_size)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
-        shape = (self.num_blocks, self.page_size, self.num_kv_heads,
-                 self.head_dim)
-        self.caches = [(torch.zeros(shape, dtype=dtype, device=device),
-                        torch.zeros(shape, dtype=dtype, device=device))
+        self.caches = [pool_pair(self.num_blocks, self.page_size,
+                                 self.num_kv_heads, self.head_dim,
+                                 int(spare_rows), dtype, device)
                        for _ in range(self.num_layers)]
         self.allocator = BlockAllocator(self.num_blocks)
 

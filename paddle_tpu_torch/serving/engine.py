@@ -34,7 +34,17 @@ layers take the unfused branch and each projection adds the grouped-BGMV
 delta of its slot's adapter.  On the CPU (``device="cpu"``) the same step
 runs their plain versions.  :meth:`launches_per_step` counts the kernel
 launches (on the CPU the plain calls) of the last step.  The step's
-shapes never depend on occupancy, as in the reference.  Not ported yet
+shapes never depend on occupancy, as in the reference.
+
+On the card the step is captured once into a CUDA graph at
+:meth:`warmup` (or at the first :meth:`step` without one) and replayed
+on every step (``serving.graph.StepGraph``): each step copies its
+inputs into static buffers and replays, and :attr:`captures` stays 1
+while :attr:`replays` counts the steps.  The span write sends dead rows
+to spare rows behind the pools, so the step never syncs the host; the
+copy-on-write page copy, sampling and the margins run eagerly around
+the replay, in stream order.  On the CPU the same step runs eagerly on
+the same static buffers.  Not ported yet
 (ROADMAP.md): speculative decoding, meshes, disaggregated roles,
 preemption/swap, int8 KV pools, telemetry and fault sites.
 """
@@ -53,6 +63,7 @@ from ..core.device import resolve_device
 from ..ops import cuda as _kernels
 from .block_allocator import PagedKVCache, PrefixCache
 from .errors import AdmissionError, BudgetUnsatisfiable, UnknownAdapter
+from .graph import StepGraph
 from .scheduler import Request, RequestState, Scheduler
 
 __all__ = ["Engine", "TokenEvent"]
@@ -154,7 +165,7 @@ class Engine:
                  enable_prefix_caching: bool = True, seed: int = 0,
                  keep_finished: int = 1024,
                  weight_quant: Optional[str] = None, lora=None,
-                 device=None):
+                 device=None, _eager_step: bool = False):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
@@ -218,9 +229,12 @@ class Engine:
             # enough for every slot to run a full-length sequence
             num_blocks = self.max_batch * self.max_blocks_per_seq
         dtype = next(model.parameters()).dtype
+        b, c = self.max_batch, self.prefill_chunk
+        # one spare row per (slot, span row): the span write's dead rows
         self.kv = PagedKVCache(n_layers, num_blocks, self.page_size,
                                kv_heads, head_dim, dtype=dtype,
-                               device=self.device)
+                               device=self.device, spare_rows=b * c)
+        self._pool_ptrs = self._ptrs(self.kv.caches)
         self.prefix_cache = PrefixCache(self.kv.allocator, self.page_size) \
             if enable_prefix_caching else None
         self.scheduler = Scheduler(self.max_batch, self.page_size,
@@ -244,11 +258,31 @@ class Engine:
         self.margins: Optional[Dict[str, List[float]]] = None
         self.lora = lora
         self._last_launches: Optional[Dict[str, int]] = None
+        # the step's static inputs and output; captured on the card unless
+        # built eager (a switch for in-process comparisons, never taken on
+        # a failure)
+        self._graph = StepGraph(
+            self._step_fn, {"tokens": (b, c),
+                            "tables": (b, self.max_blocks_per_seq),
+                            "starts": (b,), "lens": (b,), "adapters": (b,)},
+            self.device, capture=self.device.type == "cuda"
+            and not _eager_step)
 
     # -- the device step ---------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    @staticmethod
+    def _ptrs(caches) -> List[int]:
+        return [t.data_ptr() for pair in caches for t in pair]
+
+    def _check_pools(self, caches) -> None:
+        """A captured graph holds the pools' addresses: the step and the
+        page copy must hand back the very same pool tensors."""
+        if self._ptrs(caches) != self._pool_ptrs:
+            raise RuntimeError("the KV pools moved: the step and the page "
+                               "copy must write them in place")
 
     @torch.no_grad()
     def _step_fn(self, tokens, tables, starts, lens, adapters):
@@ -262,7 +296,7 @@ class Engine:
         hidden, caches = self.model.model(
             tokens, caches=self.kv.caches, seq_lens=lens,
             block_tables=tables, span_starts=starts, lora=lora)
-        self.kv.caches = caches
+        self._check_pools(caches)
         idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
         h_last = hidden[torch.arange(hidden.shape[0],
                                      device=hidden.device), idx]
@@ -271,22 +305,28 @@ class Engine:
     @torch.no_grad()
     def _cow_fn(self, src, dst):
         """Copy-on-write page copies src[i] -> dst[i] in every layer's
-        pools; padded entries carry the OOB sentinel (masked out)."""
+        pools; padded entries carry the OOB sentinel (masked out).  Eager,
+        before the step in stream order (its mask syncs the host)."""
         from ..incubate.nn.functional import paged_copy_blocks
-        self.kv.caches = [paged_copy_blocks(c, src, dst)
-                          for c in self.kv.caches]
+        self._check_pools([paged_copy_blocks(c, src, dst)
+                           for c in self.kv.caches])
 
     def warmup(self) -> "Engine":
-        """Run the ragged step and the CoW copy once with all-out-of-range
-        block tables and zero span lengths: the kernels build and load,
-        and nothing touches the pools or the allocator."""
+        """Prepare the ragged step on all-out-of-range block tables and
+        zero span lengths -- one eager run that builds and loads the
+        kernels, then, on the card, the one capture of the step's CUDA
+        graph -- and run the CoW copy once on padding.  Nothing touches
+        the pools or the allocator.  Later calls only repeat the CoW
+        copy: the step is captured once."""
         b, mb, c = self.max_batch, self.max_blocks_per_seq, \
             self.prefill_chunk
-        oob = np.full((b, mb), self.kv.oob_block, np.int32)
         zeros_i = np.zeros((b,), np.int32)
-        self._step_fn(self._tensor(np.zeros((b, c), np.int32)),
-                      self._tensor(oob), self._tensor(zeros_i),
-                      self._tensor(zeros_i), self._tensor(zeros_i))
+        self._graph.load({"tokens": np.zeros((b, c), np.int32),
+                          "tables": np.full((b, mb), self.kv.oob_block,
+                                            np.int32),
+                          "starts": zeros_i, "lens": zeros_i,
+                          "adapters": zeros_i})
+        self._graph.prepare()
         pad = self._tensor(np.full((b,), self.kv.oob_block, np.int32))
         self._cow_fn(pad, pad)
         if self.device.type == "cuda":
@@ -376,6 +416,18 @@ class Engine:
             return {"active_adapters": 0, "max_adapters": 0, "rank": 0,
                     "loads": 0, "evictions": 0, "live_refs": 0}
         return self.lora.stats()
+
+    @property
+    def captures(self) -> int:
+        """CUDA graph captures of the step: 1 after warmup on the card,
+        and no more whatever the traffic; 0 when the step runs eagerly
+        (the CPU)."""
+        return self._graph.captures
+
+    @property
+    def replays(self) -> int:
+        """Replays of the captured step: one per non-empty step."""
+        return self._graph.replays
 
     def launches_per_step(self) -> Optional[Dict[str, int]]:
         """Kernel launches of the last non-empty step, by kernel
@@ -470,13 +522,16 @@ class Engine:
         events: List[TokenEvent] = []
         if not plan:
             return events
+        if not self._graph.ready:
+            self.warmup()            # the one capture, as the reference's
         self._run_cow(plan)
         (tokens, tables, starts, lens, temps, seeds, emit,
          adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk)
+        self._graph.load({"tokens": tokens, "tables": tables,
+                          "starts": starts, "lens": lens,
+                          "adapters": adapters})
         before = _kernels.counts(self.device.type)
-        logits = self._step_fn(self._tensor(tokens), self._tensor(tables),
-                               self._tensor(starts), self._tensor(lens),
-                               self._tensor(adapters))
+        logits = self._graph.run()
         after = _kernels.counts(self.device.type)
         self._last_launches = {k: after[k] - before[k] for k in after}
         nxt = _sample(logits, temps, self._key, seeds, emit).cpu().numpy()
