@@ -63,7 +63,13 @@ Phases, each of which fails the run on its own (nothing is caught):
    the gathered KV), in bf16 and f32 and (gpt3-6.7b and the edges) f16,
    each row with its device time, host time per call and plan (path,
    spans, stages per span, grid blocks) and two calls bit-equal; an f16
-   head dim of 80 must raise;
+   head dim of 80 must raise; and the paged kernel on generate()'s
+   dense-cache view (dense_decode_view rows: dense (B, 192, H_kv, 128)
+   caches read as one page per slot, B = 8, llama2-7b and the llama2-70b
+   GQA shape, bf16 and f32, contexts in [1, 192], held against
+   attend_dense_gqa, two calls bit-equal, library SDPA over the dense
+   cache; a strided cache must raise, a cache of another dtype than q
+   is read with q cast to it);
 3. engine: llama2-7b in bf16, all 32 layers, random weights drawn on the
    card from a seeded generator, behind Engine(max_batch=8,
    max_seq_len=512, page_size=16): 8 staggered greedy requests, two of
@@ -96,6 +102,17 @@ Phases, each of which fails the run on its own (nothing is caught):
    decode calls of 32 paged-attention launches each; how many leading
    tokens equal the gpt_engine streams is reported, not gated), and 8
    more decode calls under torch.profiler;
+   generate: llama2-7b bf16 fused, 32 layers, model.generate() over 8
+   prompts of 128 tokens, 64 new tokens, greedy: the prefill in one
+   eager forward, then the one-token decode step captured once into a
+   CUDA graph and replayed (captures 1, replays 63, each replay
+   crediting 32 QKV, 32 SwiGLU and 32 paged-attention launches; the
+   launch totals of the call asserted); prefill ms, decode ms per step
+   captured and eager (the same caches and buffers without the graph)
+   in turns (captured, eager, eager, captured), the replays' device ms
+   by CUDA events, decode tokens/s, greedy streams equal between the
+   two; a second call of the same shape with 32 tokens and top-k/top-p
+   sampling, reproducible from seed(), leaves captures at 1;
 4. cross-check: a 2-layer model at full llama2-7b width in f32, the same
    weights on both sides, kernels on the card against the plain versions
    on the CPU: greedy streams must be equal under the near-tie rule; the
@@ -104,6 +121,9 @@ Phases, each of which fails the run on its own (nothing is caught):
    and LayerNorms randomised), the Engine's streams under the same rule,
    and the paged prefill + 4 decode calls' logits within f32 tolerance,
    the same paged check for llama-350m-hd128 cut to 2 layers;
+   generate() on llama-350m-hd128 and gpt2-345m cut to 2 layers, f32,
+   card against CPU: greedy tokens equal under the near-tie rule, and a
+   sampled call on the card reproducible from seed();
 5. train: llama2-7b width cut to 4 layers, amp O2 (bf16 parameters, f32
    master weights), AdamW + ClipGradByGlobalNorm through TrainStep, batch
    2 x 2048, 5 steps on one fixed batch, PyTorch's default precision:
@@ -120,9 +140,9 @@ Phases, each of which fails the run on its own (nothing is caught):
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
-quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, quant_engine,
-gpt_engine, gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
-train, train_cross_check; smoke: the run's wall seconds from the
+quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, generate,
+quant_engine, gpt_engine, gpt_paged, cross_check, quant_cross_check,
+gpt_cross_check, generate_cross_check, train, train_cross_check; smoke: the run's wall seconds from the
 build's start), the card's name and power limit, a
 {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  The QKV, SwiGLU, int8, int4, megakernel, BGMV and ragged attention
@@ -150,7 +170,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch import amp, optimizer
+from paddle_tpu_torch import amp, optimizer, seed
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import PRESETS, causal_lm_loss, gpt, llama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -249,6 +269,9 @@ LORA_RANK = 16
 # the llama2-7b engine step and of the llama2-70b GQA geometry
 RAGGED = {"llama2-7b": (8, 16, 32, 32, 128, 16, 512),
           "llama2-70b-gqa": (8, 16, 64, 8, 128, 16, 512)}
+# the generate phase: llama2-7b bf16, 8 prompts of 128 tokens, 64 new
+# tokens each, dense caches of 128 + 64 positions
+GENERATE = {"batch": 8, "prompt": 128, "new": 64, "capacity": 192}
 # the random adapters' N(0, scale) entries: the delta x @ A @ B of a
 # normed 4096-wide row then has a std of ~4096**0.5 * 16**0.5 * scale**2
 # = 0.64, half the base projection's (~1.28), so adapters change greedy
@@ -1398,6 +1421,9 @@ def kernel_phase():
     # the GPT path's kernels: a generator of their own
     rows += gpt_kernel_rows(torch.Generator(device="cuda").manual_seed(4),
                             np.random.default_rng(4))
+    # generate()'s dense decode view: a generator of its own
+    rows += dense_view_rows(torch.Generator(device="cuda").manual_seed(8),
+                            np.random.default_rng(8))
     return rows
 
 
@@ -2145,6 +2171,85 @@ def paged_case(b, h, hkv, d, page, lens, dtype, gen, rng):
     return err, kern, plain, library, nbytes, 4.0 * int(lens.sum()) * h * d
 
 
+def dense_view_case(b, h, hkv, d, cap, lens, dtype, gen):
+    """Paged decode attention over dense (B, cap, H_kv, D) caches read as
+    one page of cap positions per slot (``dense_attention``, the view
+    ``generate()``'s decode step attends), held against
+    ``attend_dense_gqa`` on the same caches, two calls bit-equal.
+    Library: SDPA over the dense, head-repeated cache with a length
+    mask."""
+    lens = np.asarray(lens, np.int32)
+    q = rand((b, h, d), dtype, gen)
+    kc, vc = rand((b, cap, hkv, d), dtype, gen), \
+        rand((b, cap, hkv, d), dtype, gen)
+    ln = torch.from_numpy(lens).cuda()
+    scale = 1.0 / math.sqrt(d)
+    kern = lambda: PA.dense_attention(q, kc, vc, ln)
+    plain = lambda: PA.attend_dense_gqa(q, kc, vc, ln, scale)
+    g = h // hkv
+
+    def library():
+        k = kc.transpose(1, 2).repeat_interleave(g, 1)
+        v = vc.transpose(1, 2).repeat_interleave(g, 1)
+        mask = torch.arange(cap, device="cuda") < ln[:, None]
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask[:, None, None])
+
+    got = kern()
+    err = compare("dense_decode_view", got, plain(), dtype)
+    assert torch.equal(got, kern()), f"dense view {dtype}: two calls differ"
+    it = q.element_size()
+    nbytes = it * (2 * b * h * d + 2 * int(lens.sum()) * hkv * d) + 4 * b
+    return err, kern, plain, library, nbytes, 4.0 * int(lens.sum()) * h * d
+
+
+def dense_view_rows(gen, rng):
+    """The paged-attention kernel on the dense-cache view at the generate
+    phase's llama2-7b decode step (B 8, capacity 192 = 128 + 64) and at
+    the llama2-70b GQA shape, bf16 and f32, contexts drawn in [1, 192]
+    with one full slot; then a strided cache must raise on the card, and
+    caches of another dtype than q (bf16 q on f32 caches and the
+    reverse) agree with ``attend_dense_gqa`` within the bf16 tolerance."""
+    rows = []
+    cap = GENERATE["capacity"]
+    lens = [int(n) for n in rng.integers(1, cap + 1, size=8)]
+    lens[0] = cap
+    for geom, (h, hkv) in (("llama2-7b", (32, 32)),
+                           ("llama2-70b-gqa", (64, 8))):
+        for dt in (torch.bfloat16, torch.float32):
+            case = dense_view_case(8, h, hkv, 128, cap, lens, dt, gen)
+            p = paged_plan(8, h, hkv, 128, cap, 1, dt,
+                           sm_count(torch.device("cuda")))
+            rows.append(timed_row(
+                "dense_decode_view", geom, dt, case,
+                {"capacity": cap, "lens": lens,
+                 "host_us": host_us(case[1]), "path": p.path,
+                 "splits": p.splits, "stages_per_split": p.per,
+                 "grid_blocks": p.grid_blocks}))
+            del case
+            torch.cuda.empty_cache()
+    z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt,
+                                                      device="cuda")
+    ln = torch.ones((2,), dtype=torch.int32, device="cuda")
+    if not raises(lambda: PA.dense_attention(
+            z(2, 4, 128), z(2, 32, 4, 128)[:, ::2],
+            z(2, 32, 4, 128)[:, ::2], ln)):
+        raise AssertionError("dense_decode_view took a strided cache")
+    # a kv_cache_dtype other than the model's: q is cast to the caches'
+    # dtype for the kernel and the output comes back in q's
+    for q_dt, c_dt in ((torch.bfloat16, torch.float32),
+                       (torch.float32, torch.bfloat16)):
+        q = rand((8, 32, 128), q_dt, gen)
+        kc, vc = (rand((8, cap, 32, 128), c_dt, gen) for _ in range(2))
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = PA.dense_attention(q, kc, vc, ln)
+        assert got.dtype == q_dt, got.dtype
+        compare("dense_decode_view mixed dtypes", got,
+                PA.attend_dense_gqa(q, kc, vc, ln, 1.0 / math.sqrt(128)),
+                torch.bfloat16)
+    return rows
+
+
 def paged_plan_fields(b, h, hkv, d, page, lens, dtype):
     p = paged_plan(b, h, hkv, d, page, -(-max(lens) // page) + 1, dtype,
                    sm_count(torch.device("cuda")))
@@ -2476,6 +2581,208 @@ def gpt_cross_check_phase():
     return res
 
 
+# -- generate phases --------------------------------------------------------
+
+def timed_generate(model, ids, events=None, **kw):
+    """Wall ms of one ``generate()`` call ending in a synchronize, and its
+    output; with ``events`` (a list) the decode graph collects a CUDA
+    event pair around each replay into it."""
+    holder = model.decode_graph
+    if holder is not None:
+        holder.graph.replay_events = events
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if holder is not None:
+        holder.graph.replay_events = None
+    return ms, out
+
+
+def generate_phase():
+    """llama2-7b bf16 fused (32 layers, seeded random weights):
+    ``generate()`` over 8 prompts of 128 tokens, 64 new tokens, greedy.
+    The first call prefills in one eager forward (flash forward, QKV and
+    SwiGLU: one launch per layer each), runs the first decode step
+    eagerly on a side stream, captures it and replays it for the other
+    63 tokens: captures 1, replays 63, each replay crediting 32 QKV, 32
+    SwiGLU and 32 paged-attention launches.  Then prefill ms (a
+    max_new_tokens=1 call of the same capacity), decode ms per step,
+    captured and eager (``_eager_step``: the same caches and buffers
+    without the graph) in turns (captured, eager, eager, captured), the
+    replays' device ms by CUDA events, greedy streams equal between the
+    two, and a second call of the same shape with fewer tokens and
+    top-k/top-p sampling, reproducible from ``seed`` and leaving
+    captures at 1."""
+    b, p, new, cap = (GENERATE[k] for k in ("batch", "prompt", "new",
+                                            "capacity"))
+    t0 = time.perf_counter()
+    model = llama("llama2-7b", dtype="bfloat16", fused_ops="on", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 32000, size=(b, p))).cuda()
+    layers = model.cfg.num_hidden_layers
+    reset_launches()
+    first_ms, out = timed_generate(model, ids, max_new_tokens=new)
+    launches = kernel_launches()
+    holder = model.decode_graph
+    assert (holder.captures, holder.replays) == (1, new - 1), \
+        (holder.captures, holder.replays)
+    assert holder.key == (b, cap, torch.bfloat16), holder.key
+    names = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "paged_attention",
+             "flash_attention_fwd", "ragged_paged_attention", "mega_decode")
+    per_step = {k: holder.graph.launches[k] for k in names}
+    assert per_step == {**dict.fromkeys(names[:3], layers),
+                        **dict.fromkeys(names[3:], 0)}, per_step
+    # prefill, the eager step before the capture, the replays
+    want = {"fused_rms_rope_qkv": layers * (new + 1),
+            "fused_swiglu_mlp": layers * (new + 1),
+            "paged_attention": layers * new,
+            "flash_attention_fwd": layers, "ragged_paged_attention": 0,
+            "mega_decode": 0}
+    totals = {k: launches[k] for k in names}
+    assert totals == want, (totals, want)
+    assert out.shape == (b, p + new) and torch.equal(out[:, :p], ids)
+    assert int(out.min()) >= 0 and int(out.max()) < 32000
+    prefill_ms = statistics.median(
+        timed_generate(model, ids, max_new_tokens=1, max_len=cap)[0]
+        for _ in range(3))
+    turns, streams = [], {}
+    for tag in ("captured", "eager", "eager", "captured"):
+        events = [] if tag == "captured" else None
+        ms, got = timed_generate(model, ids, events, max_new_tokens=new,
+                                 _eager_step=tag == "eager")
+        row = {"mode": tag, "call_ms": ms,
+               "step_ms": (ms - prefill_ms) / (new - 1)}
+        if events:
+            row["replay_device_ms"] = replay_ms(events) / len(events)
+        turns.append(row)
+        streams.setdefault(tag, got)
+        assert torch.equal(got, streams[tag]), f"{tag} streams moved"
+    assert torch.equal(streams["captured"], streams["eager"]), \
+        "captured and eager greedy streams differ"
+    assert torch.equal(streams["captured"], out)
+    assert (holder.captures, holder.replays) == (1, 3 * (new - 1))
+    mean = lambda tag, key: statistics.mean(r[key] for r in turns
+                                            if r["mode"] == tag)
+    kw = dict(max_new_tokens=new // 2, max_len=cap,
+              decode_strategy="sampling", temperature=0.8, top_k=50,
+              top_p=0.9)
+    seed(5)
+    s1 = model.generate(ids, **kw)
+    seed(5)
+    s2 = model.generate(ids, **kw)
+    assert torch.equal(s1, s2), "sampled streams not reproducible"
+    assert model.decode_graph is holder and holder.captures == 1
+    step_ms = mean("captured", "step_ms")
+    res = {"model": "llama2-7b", "dtype": "bfloat16", "batch": b,
+           "prompt": p, "new_tokens": new, "capacity": cap,
+           "setup_s": setup_s, "first_call_ms": first_ms,
+           "prefill_ms": prefill_ms,
+           "captured_step_ms": step_ms,
+           "eager_step_ms": mean("eager", "step_ms"),
+           "replay_device_ms": mean("captured", "replay_device_ms"),
+           "host_ms_outside_replay":
+               step_ms - mean("captured", "replay_device_ms"),
+           "decode_tok_s": b / step_ms * 1e3,
+           "call_tok_s": b * new / mean("captured", "call_ms") * 1e3,
+           "captures": holder.captures, "replays": holder.replays,
+           "launches_per_step": per_step, "launches": totals,
+           "layers": layers, "turns": turns,
+           "streams_captured_vs_eager": "equal",
+           "sampled": {"new_tokens": new // 2, "top_k": 50, "top_p": 0.9,
+                       "temperature": 0.8, "reproducible": True,
+                       "differs_from_greedy": not torch.equal(
+                           s1, out[:, :p + new // 2])}}
+    log("generate " + json.dumps(res))
+    del holder, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def generate_cross(make, steps=16):
+    """One model built on the card and copied to the CPU: greedy
+    ``generate()`` of 4 prompts of 40 tokens on both, equal under the
+    near-tie rule (CPU margins from its dense forward over the output,
+    at most one row exempt); then a sampled call on the card twice after
+    ``seed(7)``, equal; then the final norm's weight swapped for its
+    negation on both: a new decode graph is captured and the greedy
+    streams still agree, and differ from the first."""
+    gpu = make(None)
+    cpu = make("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    ids = np.random.default_rng(6).integers(0, 32000, size=(4, 40))
+
+    def greedy_pair():
+        got = gpu.generate(torch.from_numpy(ids).cuda(),
+                           max_new_tokens=steps).cpu().numpy()
+        ref = cpu.generate(torch.from_numpy(ids),
+                           max_new_tokens=steps).numpy()
+        with torch.no_grad():
+            lg = cpu(torch.from_numpy(ref[:, :-1]))[:, ids.shape[1] - 1:]
+        top = lg.float().topk(2, dim=-1).values
+        margins = (top[..., 0] - top[..., 1]).numpy()
+        verdicts = [near_tie_equal(list(r[40:]), list(g[40:]), m)
+                    for r, g, m in zip(ref, got, margins)]
+        exempt = [i for i, v in enumerate(verdicts) if v == "exempt"]
+        assert len(exempt) <= 1, exempt
+        return got, margins, verdicts, exempt
+
+    reset_launches()
+    got, margins, verdicts, exempt = greedy_pair()
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    holder = gpu.decode_graph
+    assert (holder.captures, holder.replays) == (1, steps - 1)
+    layers = gpu.cfg.num_hidden_layers
+    assert launches["paged_attention"] == layers * steps, launches
+    kw = dict(max_new_tokens=steps, decode_strategy="sampling",
+              temperature=1.0, top_p=0.9)
+    seed(7)
+    a = gpu.generate(torch.from_numpy(ids).cuda(), **kw)
+    seed(7)
+    assert torch.equal(gpu.generate(torch.from_numpy(ids).cuda(), **kw), a)
+    # a weight swapped behind the same shape: the captured graph has the
+    # old address built in, so the next call must capture a new one
+    name = [n for n, w in gpu.named_parameters()
+            if w.ndim == 1 and n.endswith("weight")][-1]
+    for m in (gpu, cpu):
+        w = m.get_parameter(name)
+        w.data = w.data * -1
+    changed, _, after, _ = greedy_pair()
+    assert gpu.decode_graph is not holder and \
+        gpu.decode_graph.captures == 1
+    assert not np.array_equal(changed, got), "stale decode graph"
+    del gpu, cpu, holder
+    torch.cuda.empty_cache()
+    return {"rows": len(got), "equal": verdicts.count("equal"),
+            "exempt": exempt, "min_margin": float(margins.min()),
+            "launches": launches, "sampled_reproducible": True,
+            "recaptured_after_weight_swap": True,
+            "equal_after_swap": after.count("equal")}
+
+
+def generate_cross_check_phase():
+    """generate() card against CPU in f32, 2 layers: llama-350m-hd128 and
+    gpt2-345m (biases and LayerNorms randomised)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make_gpt(dev):
+        m = gpt("gpt2-345m", num_hidden_layers=2, dtype="float32",
+                device=dev, seed=1)
+        if dev is None:
+            randomize_affine(m, 5)
+        return m
+
+    res = {"llama-350m-hd128": generate_cross(
+               lambda dev: llama("llama-350m-hd128", num_hidden_layers=2,
+                                 dtype="float32", device=dev, seed=1)),
+           "gpt2-345m": generate_cross(make_gpt)}
+    log("generate_cross_check " + json.dumps(res))
+    return res
+
+
 # -- train phases ----------------------------------------------------------
 
 def train_setup(cfg_name, layers, dtype, seed, device=None, lr=3e-4):
@@ -2686,6 +2993,7 @@ def main() -> int:
                                "per_source_s": took}))
     kernel_rows = kernel_phase()
     engine = engine_phase()
+    generate_phase()
     quant = {kind: quant_engine_phase(kind) for kind in QUANT}
     mega = mega_engine_phase()
     lora = lora_engine_phase()
@@ -2698,6 +3006,7 @@ def main() -> int:
     mega_cross_check_phase()
     lora_cross_check_phase()
     gpt_cross_check_phase()
+    generate_cross_check_phase()
     train = train_phase()
     train_cross_check_phase()
     main_rows = {r["name"]: r for r in kernel_rows

@@ -12,13 +12,16 @@ runs its plain PyTorch version.
 
 Ported so far: Llama and GPT serving through the paged ragged
 ``serving.Engine`` step and the paged bucket-prefill/decode model path,
-and Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
+their dense-cache ``generate()`` (the decode step captured once into a
+CUDA graph on the card; :func:`seed` resets its random stream), and
+Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
 ``nn.ClipGradByGlobalNorm`` and ``amp.decorate`` at O2 (ROADMAP.md lists
 what is still to port).
 """
 
 from .core.device import resolve_device
+from .core.random import seed
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["resolve_device", "seed", "__version__"]

@@ -11,6 +11,15 @@ names.  ``_paged_span_write``, ``write_paged_kv``, ``paged_prefill_write``
 and ``paged_copy_blocks`` are plain indexed tensor code here as in the
 reference, where they are not Pallas kernels either.
 
+The dense-cache pair ``prefill_write_cache`` / ``decode_attend_cache``
+(``masked_multihead_attention``) serves ``generate()``: the reference
+attends the dense cache by composition, the port by the paged-attention
+kernel over the cache read as one page per slot
+(``ops/cuda/paged_attention.dense_attention``) on the card, and by the
+composition's twin ``_attend_dense_gqa`` on the CPU.  The one-token write
+is one fixed-shape ``index_copy_`` per cache, so a captured decode step
+never syncs the host.
+
 ``fused_swiglu_mlp``, ``fused_gelu_mlp`` and ``fused_rms_rope_qkv`` are
 differentiable: each
 is a ``torch.autograd.Function`` whose forward is the kernel (the plain
@@ -53,11 +62,12 @@ from ...ops.cuda import paged_attention as _pa
 from ...ops.cuda import ragged_attention as _ra
 from ...ops.cuda._common import dot_f32
 
-__all__ = ["fused_gelu_mlp", "fused_rms_rope_qkv", "fused_swiglu_mlp",
-           "lora_bgmv", "lora_delta", "mega_decode_layer",
+__all__ = ["decode_attend_cache", "dense_attend", "fused_gelu_mlp",
+           "fused_rms_rope_qkv", "fused_swiglu_mlp", "lora_bgmv", "lora_delta",
+           "masked_multihead_attention", "mega_decode_layer",
            "paged_attend", "paged_attention", "paged_copy_blocks",
            "paged_decode_attend", "paged_positions", "paged_prefill_write",
-           "ragged_paged_attend", "write_paged_kv"]
+           "prefill_write_cache", "ragged_paged_attend", "write_paged_kv"]
 
 _fused_swiglu_mlp_ref = _fm.plain
 _fused_gelu_mlp_ref = _fg.plain
@@ -67,6 +77,7 @@ _paged_gather_dense = _ra.paged_gather_dense
 _ragged_attend_dense = _ra.ragged_attend_dense
 _attend_dense_gqa = _pa.attend_dense_gqa
 _INT8_POOLS = "int8 paged pools are not ported yet (ROADMAP.md)"
+_INT8_DENSE = "int8 dense KV caches are not ported yet (ROADMAP.md)"
 
 
 @contextlib.contextmanager
@@ -245,9 +256,10 @@ def paged_prefill_write(cache, k, v, block_tables, prompt_lens):
 
 def paged_attend(cache, q, k, v, block_tables, seq_lens=None,
                  span_starts=None):
-    """One decoder layer's attention against its paged pool pair
-    ``cache``, the branch chosen as both model families' paged forward
-    chooses it: with ``span_starts`` the ragged step
+    """One decoder layer's attention against its KV cache ``cache``, the
+    branch chosen as both model families' cached forward chooses it.
+    Without ``block_tables`` the dense cache pair (:func:`dense_attend`).
+    With them the paged pool pair: with ``span_starts`` the ragged step
     (:func:`ragged_paged_attend`, ``seq_lens`` the span lengths); with
     S == 1 and ``seq_lens`` a one-token decode written at ``seq_lens``
     (:func:`paged_decode_attend`); else the bucket prefill, written at
@@ -256,6 +268,8 @@ def paged_attend(cache, q, k, v, block_tables, seq_lens=None,
     cache)``.  :func:`paged_positions` gives the matching positions."""
     from ...nn.functional import scaled_dot_product_attention
     b, s = q.shape[:2]
+    if block_tables is None:
+        return dense_attend(cache, q, k, v, seq_lens)
     if span_starts is not None:
         return ragged_paged_attend(cache, q, k, v, block_tables,
                                    span_starts, seq_lens)
@@ -266,6 +280,22 @@ def paged_attend(cache, q, k, v, block_tables, seq_lens=None,
     plens = seq_lens if seq_lens is not None else torch.full(
         (b,), s, dtype=torch.int32, device=q.device)
     cache = paged_prefill_write(cache, k, v, block_tables, plens)
+    return scaled_dot_product_attention(q, k, v, is_causal=True), cache
+
+
+def dense_attend(cache, q, k, v, seq_lens=None):
+    """One decoder layer's attention against its dense cache pair: with
+    S == 1 and ``seq_lens`` a one-token decode written at ``seq_lens``
+    (:func:`decode_attend_cache`); else a prefill written at ``[0, S)``
+    (:func:`prefill_write_cache`) and attended causally
+    (``scaled_dot_product_attention``, the flash kernel on the card).
+    Returns ``(out (B, S, H, D), cache)``."""
+    from ...nn.functional import scaled_dot_product_attention
+    if q.shape[1] == 1 and seq_lens is not None:
+        out, cache = decode_attend_cache(cache, q[:, 0], k[:, 0], v[:, 0],
+                                         seq_lens)
+        return out[:, None], cache
+    cache = prefill_write_cache(cache, k, v)
     return scaled_dot_product_attention(q, k, v, is_causal=True), cache
 
 
@@ -380,6 +410,67 @@ def lora_delta(lora, inp, key):
     if e is None:
         return None
     return lora_bgmv(inp, e["a"], e["b"], laids)
+
+
+def prefill_write_cache(cache, k, v, offset: int = 0):
+    """Write a prefill chunk ``k``/``v`` (B, S, H_kv, D) at positions
+    ``[offset, offset + S)`` of the dense fp cache pair ``cache``
+    ((B, S_max, H_kv, D) each).  In place; returns ``cache``.  The int8
+    4-tuple raises."""
+    if len(cache) != 2:
+        raise NotImplementedError(_INT8_DENSE)
+    s = k.shape[1]
+    for dst, src in zip(cache, (k, v)):
+        dst[:, offset:offset + s] = src.to(dst.dtype)
+    return cache
+
+
+def decode_attend_cache(cache, q, new_k, new_v, seq_lens):
+    """One decode step against a dense cache tuple: the cache-arity
+    dispatch shared by the model families (the int8 4-tuple raises).
+    Returns ``(out, cache)``, the cache updated in place."""
+    if len(cache) != 2:
+        raise NotImplementedError(_INT8_DENSE)
+    out, kc, vc = masked_multihead_attention(q, cache[0], cache[1],
+                                             seq_lens, new_k, new_v)
+    return out, (kc, vc)
+
+
+def _write_at(cache, new, seq_lens):
+    """``cache[b, seq_lens[b]] = new[b]`` as one ``index_copy_`` over the
+    (B * S_max) rows; a slot whose position is past the cache keeps its
+    row, as the reference drops that write.  Nothing syncs the host."""
+    b, s_max = cache.shape[:2]
+    pos = seq_lens.long()
+    rows = torch.arange(b, device=cache.device) * s_max + \
+        pos.clamp(max=s_max - 1)
+    flat = cache.view(b * s_max, *cache.shape[2:])
+    val = torch.where((pos < s_max)[:, None, None], new.to(cache.dtype),
+                      flat.index_select(0, rows))
+    flat.index_copy_(0, rows, val)
+
+
+def masked_multihead_attention(q, k_cache, v_cache, seq_lens, new_k=None,
+                               new_v=None, scale: Optional[float] = None,
+                               k_scale=None, v_scale=None):
+    """Single-step decode attention against a dense KV cache.
+
+    q (B, H, D), the new token's query; k_cache/v_cache (B, S_max, H_kv,
+    D), updated in place; seq_lens (B,), the tokens already cached (the
+    new token's position); new_k/new_v (B, H_kv, D), written at
+    ``seq_lens`` when given.  q attends positions ``[0, seq_lens]``, the
+    new token included.  On CUDA tensors the paged-attention kernel reads
+    the caches as one page per slot (a cache it cannot take raises), on
+    CPU tensors :func:`_attend_dense_gqa` runs.  ``k_scale``/``v_scale``
+    (the int8 caches) raise.  Returns ``(out, k_cache, v_cache)``."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(_INT8_DENSE)
+    if new_k is not None:
+        _write_at(k_cache, new_k, seq_lens)
+        _write_at(v_cache, new_v, seq_lens)
+    ctx = (seq_lens + 1).to(torch.int32)
+    out = _pa.dense_attention(q, k_cache, v_cache, ctx, scale)
+    return out, k_cache, v_cache
 
 
 def paged_copy_blocks(cache, src_blocks, dst_blocks):

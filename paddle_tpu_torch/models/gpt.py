@@ -13,6 +13,9 @@ Ported:
   ``scaled_dot_product_attention``, the flash-attention kernel on the
   card); and the one-token decode (``paged_decode_attend``, the
   paged-attention kernel on the card);
+- the dense-cache forward (``caches`` without ``block_tables``) and
+  ``generate()`` (``models/generation.py``), as for the port's Llama;
+  the caches hold ``num_attention_heads`` heads (no GQA);
 - ``GPTMLP`` fused (``fused_gelu_mlp``, the fused GELU-MLP kernel on the
   card) and unfused (``fc_out(gelu(fc_in(x)))``).  ``"auto"`` resolves
   to ``"on"``, as for the port's Llama: ``"on"``, ``"auto"`` and
@@ -21,9 +24,9 @@ Ported:
   cannot take (H and F multiples of 128, f32 or bf16), and runs the
   plain version on the CPU; ``"off"`` and weight-only quantized
   projections (``_use_fused``'s veto) take the unfused branch.
-Pipeline stages, sequence parallelism, recompute, dropout, the dense KV
-cache and multi-LoRA raise ``NotImplementedError`` (ROADMAP.md lists them
-as still to port).
+Pipeline stages, sequence parallelism, recompute, dropout, multi-LoRA,
+beam search and int8 dense caches raise ``NotImplementedError``
+(ROADMAP.md lists them as still to port).
 
 Learned positions past the table.  The ragged step gives each slot's
 span rows the positions ``start + j``; a slot's padding rows near the end
@@ -48,6 +51,8 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import Embedding, LayerNorm
+from .generation import (CachedGenerationMixin, make_dense_caches,
+                         run_cached_layers)
 from .llama import _TODO, _Init, _use_fused
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "PRESETS", "gpt"]
@@ -123,8 +128,9 @@ class GPTAttention(nn.Module):
                 block_tables=None, span_starts=None):
         """``x`` is ln_1-normed.  Without a cache: causal (or masked)
         attention over the sequence, returns ``out_proj(attn)``.  With
-        the paged pools returns ``(out_proj(attn), cache)``, the branch
-        chosen by ``incubate.nn.functional.paged_attend``."""
+        the dense caches or the paged pools returns ``(out_proj(attn),
+        cache)``, the branch chosen by
+        ``incubate.nn.functional.paged_attend``."""
         from ..incubate.nn.functional import paged_attend
         cfg = self.cfg
         b, s = x.shape[:2]
@@ -161,6 +167,7 @@ class GPTMLP(nn.Module):
 
 class GPTDecoderLayer(nn.Module):
     supports_paged = True   # paged-pool serving path (serving.Engine)
+    supports_cache = True   # dense KV caches (generate())
 
     def __init__(self, cfg: GPTConfig, init: _Init):
         super().__init__()
@@ -209,6 +216,20 @@ class GPTModel(nn.Module):
         pos = pos.clamp(0, self.cfg.max_position_embeddings - 1)
         return self.embed_tokens(input_ids) + self.embed_positions(pos)
 
+    def init_cache(self, batch, max_len, dtype=None):
+        """Per-layer dense (k, v) caches for cached generation on the
+        model's device.  A capacity past the learned position table
+        raises."""
+        cfg = self.cfg
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len {max_len} exceeds max_position_embeddings "
+                f"{cfg.max_position_embeddings} (learned positions)")
+        return make_dense_caches(
+            cfg.num_hidden_layers, batch, max_len, cfg.num_attention_heads,
+            cfg.head_dim, dtype if dtype is not None else cfg.dtype,
+            device=self.embed_tokens.weight.device)
+
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 caches=None, seq_lens=None, block_tables=None,
                 span_starts=None, lora=None):
@@ -233,38 +254,31 @@ class GPTModel(nn.Module):
 
     def _forward_cached(self, input_ids, caches, seq_lens,
                         block_tables=None, span_starts=None, lora=None):
-        """The paged serving forward: with ``span_starts`` the ragged
-        step (spans at ``[start, start + len)``, ``seq_lens`` the span
-        lengths); with S == 1 and ``seq_lens`` one decode token per slot
-        at position ``seq_lens``; else the bucket prefill at positions
-        ``arange(S)``, ``seq_lens`` the prompt lengths.  Returns
-        ``(hidden, caches)``."""
-        if block_tables is None:
-            raise NotImplementedError(
-                "only the paged cached forward (block_tables) is ported; "
-                "the dense-cache path" + _TODO)
+        """The cached forward, over dense caches without
+        ``block_tables`` or the paged pools with them: with
+        ``span_starts`` the ragged step (spans at ``[start, start +
+        len)``, ``seq_lens`` the span lengths); with S == 1 and
+        ``seq_lens`` one decode token per slot at position ``seq_lens``;
+        else a prefill at positions ``arange(S)`` (paged: ``seq_lens``
+        the prompt lengths).  Returns ``(hidden, caches)``; the caches
+        are written in place."""
         if lora is not None:
             raise NotImplementedError("multi-LoRA GPT serving" + _TODO)
-        if len(caches) != len(self.h):
-            raise ValueError(
-                f"cache list has {len(caches)} entries for {len(self.h)} "
-                "decoder layers — was it built by a different config?")
         from ..incubate.nn.functional import paged_positions
         s = input_ids.shape[1]
         pos = paged_positions(s, seq_lens, span_starts, input_ids.device)
         if pos is None:
             pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self._embed(input_ids, pos)
-        new_caches = []
-        for layer, cache in zip(self.h, caches):
-            x, cache = layer(x, cache=cache, seq_lens=seq_lens,
-                             block_tables=block_tables,
-                             span_starts=span_starts)
-            new_caches.append(cache)
+        x, new_caches = run_cached_layers(
+            self.h, x, caches,
+            lambda layer, x, cache: layer(
+                x, cache=cache, seq_lens=seq_lens,
+                block_tables=block_tables, span_starts=span_starts))
         return self.ln_f(x), new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(CachedGenerationMixin, nn.Module):
     model_cls = GPTModel
     # Engine options the port does not serve for GPT yet (ROADMAP.md)
     engine_options_not_ported = ("weight_quant", "lora")
@@ -294,6 +308,9 @@ class GPTForCausalLM(nn.Module):
             w = self.model.embed_tokens.weight
             return hidden @ w.to(hidden.dtype).T
         return self.lm_head(hidden)
+
+    def _cache_supported(self) -> bool:
+        return self.cfg.pipeline_stages == 1
 
     def forward(self, input_ids, labels=None, attn_mask=None,
                 position_ids=None):

@@ -25,6 +25,15 @@ Ported:
   input norm, ``q_proj``/``k_proj``/``v_proj`` and
   ``apply_rotary_pos_emb``; ``down_proj(swiglu(gate_proj(x),
   up_proj(x)))``;
+- the dense-cache forward (``caches`` without ``block_tables``): a
+  prefill at positions ``arange(S)`` written at ``[0, S)`` of the dense
+  caches (``prefill_write_cache``) and attended causally (the flash
+  kernel on the card), or a one-token decode at position ``seq_lens``
+  (``decode_attend_cache``: the paged-attention kernel over the cache
+  read as one page per slot on the card), and ``generate()``
+  (``models/generation.py``: greedy, top-k/top-p sampling, repetition
+  penalty, EOS freezing, recompute; the decode step captured once into
+  a CUDA graph on the card and replayed);
 - ``fused_ops="mega"`` (``_use_mega``): on the paged ragged step (only
   there, as in the reference) the decoder layer's whole attention block is ``mega_decode_layer`` (the
   decode megakernel on the card), the MLP after it the fused SwiGLU;
@@ -32,7 +41,7 @@ Ported:
   adapter ids)`` threads through the cached forward; each layer then
   takes the unfused branch and adds ``lora_delta`` to q/k/v (before
   RoPE), o, gate, up and down.
-The dense-cache path, ``generate()``, context/model parallelism, the
+Beam search, int8 dense caches, context/model parallelism, the
 chunked loss and ``fuse_qkv_mlp`` raise ``NotImplementedError``
 (ROADMAP.md lists them as still to port).  ``"auto"`` resolves to
 ``"on"``: in the port every fused entry point serves (the kernel on the
@@ -57,6 +66,8 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear
+from .generation import (CachedGenerationMixin, make_dense_caches,
+                         run_cached_layers)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "PRESETS",
            "causal_lm_loss", "llama"]
@@ -211,12 +222,13 @@ class LlamaAttention(nn.Module):
         through the three projections and ``apply_rotary_pos_emb``.
         cos/sin are (S, head_dim) or per-slot (B, S, head_dim).  Without
         a cache: causal attention over the sequence, returns
-        ``o_proj(attn)``.  With the paged pools (``cache``,
-        ``block_tables``) returns ``(o_proj(attn), cache)``: the ragged
-        serving branch with ``span_starts``; one-token decode with S == 1
-        and ``seq_lens`` (the tokens already cached); else the bucket
-        prefill, written at ``[0, seq_lens)`` (all S rows without
-        ``seq_lens``).  ``lora`` (unfused branch only)
+        ``o_proj(attn)``.  With a cache returns ``(o_proj(attn), cache)``.
+        Dense caches (no ``block_tables``): one-token decode with S == 1
+        and ``seq_lens``, else a prefill written at ``[0, S)``.  Paged
+        pools: the ragged serving branch with ``span_starts``; one-token
+        decode with S == 1 and ``seq_lens`` (the tokens already cached);
+        else the bucket prefill, written at ``[0, seq_lens)`` (all S rows
+        without ``seq_lens``).  ``lora`` (unfused branch only)
         adds each slot's adapter delta to the q/k/v projections before
         RoPE and to the O projection."""
         from ..incubate.nn.functional import (fused_rms_rope_qkv,
@@ -297,6 +309,7 @@ class LlamaMLP(nn.Module):
 
 class LlamaDecoderLayer(nn.Module):
     supports_paged = True   # paged-pool serving path (serving.Engine)
+    supports_cache = True   # dense KV caches (generate())
 
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
@@ -380,6 +393,15 @@ class LlamaModel(nn.Module):
              for _ in range(cfg.num_hidden_layers)])
         self.norm = LlamaRMSNorm(cfg, init)
 
+    def init_cache(self, batch, max_len, dtype=None):
+        """Per-layer dense (k, v) caches for cached generation on the
+        model's device; dtype defaults to the config's.  int8 raises."""
+        cfg = self.cfg
+        return make_dense_caches(
+            cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
+            cfg.head_dim, dtype if dtype is not None else cfg.dtype,
+            device=self.embed_tokens.weight.device)
+
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 caches=None, seq_lens=None, block_tables=None,
                 span_starts=None, lora=None):
@@ -402,25 +424,21 @@ class LlamaModel(nn.Module):
 
     def _forward_cached(self, input_ids, caches, seq_lens,
                         block_tables=None, span_starts=None, lora=None):
-        """The paged serving forward.  With ``span_starts`` the unified
-        RAGGED step: per-slot spans (chunked prefill or decode tokens) at
-        positions ``[start, start+len)``, ``seq_lens`` carrying the span
-        lengths.  Without it the bucket-prefill/decode path: S == 1 with
+        """The cached forward.  Without ``block_tables`` the caches are
+        dense (``init_cache``): S == 1 with ``seq_lens`` is one decode
+        token per slot at position ``seq_lens``; otherwise a prefill at
+        positions ``arange(S)``, written at ``[0, S)``.  With them the
+        paged pools: with ``span_starts`` the unified RAGGED step: per-slot
+        spans (chunked prefill or decode tokens) at positions
+        ``[start, start+len)``, ``seq_lens`` carrying the span lengths;
+        without it the bucket-prefill/decode path: S == 1 with
         ``seq_lens`` is one decode token per slot at position
         ``seq_lens``; otherwise a prefill at positions ``arange(S)``,
         ``seq_lens`` the prompt lengths.  ``lora`` is the multi-LoRA pair
         (per-layer stacked adapter packs, per-slot adapter ids): each
-        decoder layer gets its own pack.  Returns ``(hidden, caches)``."""
-        if block_tables is None:
-            raise NotImplementedError(
-                "only the paged cached forward (block_tables) is ported; "
-                "the dense-cache path" + _TODO)
+        decoder layer gets its own pack.  Returns ``(hidden, caches)``;
+        the caches are written in place."""
         cfg = self.cfg
-        if len(caches) != len(self.layers):
-            raise ValueError(
-                f"cache list has {len(caches)} entries for "
-                f"{len(self.layers)} decoder layers — was it built by a "
-                "different config?")
         if lora is not None and len(lora[0]) != len(self.layers):
             raise ValueError(
                 f"LoRA packs for {len(lora[0])} layers, the model has "
@@ -432,18 +450,18 @@ class LlamaModel(nn.Module):
         cos, sin = F.rope_cos_sin(s, cfg.head_dim, base=cfg.rope_theta,
                                   dtype=x.dtype, position_ids=pos,
                                   device=x.device)
-        new_caches = []
-        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
-            x, cache = layer(x, cos, sin, cache=cache, seq_lens=seq_lens,
-                             block_tables=block_tables,
-                             span_starts=span_starts,
-                             lora=None if lora is None
-                             else (lora[0][i], lora[1]))
-            new_caches.append(cache)
+        # each layer its own LoRA pack, in stack order
+        packs = iter(lora[0]) if lora is not None else None
+        x, new_caches = run_cached_layers(
+            self.layers, x, caches,
+            lambda layer, x, cache: layer(
+                x, cos, sin, cache=cache, seq_lens=seq_lens,
+                block_tables=block_tables, span_starts=span_starts,
+                lora=None if packs is None else (next(packs), lora[1])))
         return self.norm(x), new_caches
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(CachedGenerationMixin, nn.Module):
     model_cls = LlamaModel
 
     def __init__(self, cfg: LlamaConfig, device=None,
@@ -470,6 +488,10 @@ class LlamaForCausalLM(nn.Module):
             w = self.model.embed_tokens.weight
             return hidden @ w.to(hidden.dtype).T
         return self.lm_head(hidden)
+
+    def _cache_supported(self) -> bool:
+        return getattr(type(self.model).decoder_layer_cls, "supports_cache",
+                       False)
 
     def forward(self, input_ids, labels=None, attn_mask=None,
                 position_ids=None):

@@ -8,8 +8,10 @@ source note gives the bound and the design: bf16 and f16 run on the
 tensor cores, f32 runs SIMT products, the context cut into spans by
 :mod:`.paged_plan` and the spans merged inside the same launch.  The
 spans' f32 partials and counters are allocated once per (plan, device,
-stream) and reused by every call (:func:`_launch_args`): the kernel
-leaves the counters at zero.  :func:`plain` is the same function in
+stream) and reused by every eager call (:func:`_launch_args`): the
+kernel leaves the counters at zero.  A call under CUDA-graph capture
+takes its own zeroed scratch instead, from the graph's private pool, so
+the graph owns every buffer it reads.  :func:`plain` is the same function in
 plain PyTorch: ``ragged_attention.paged_gather_dense`` then
 :func:`attend_dense_gqa`, the twins of the JAX ``_paged_gather_dense``
 and ``_attend_dense_gqa``, with the TPU kernel's rule for an empty
@@ -18,6 +20,10 @@ composition alone gives NaN there, a softmax over nothing).
 
 Layouts: q (B, H, D); pools (NB, page, H_kv, D); tables (B, MB) int32;
 lens (B,) int32.
+
+:func:`dense_attention` runs the same kernel over a dense (B, S, H_kv, D)
+cache read as a pool of B pages of S positions (``generate()``'s decode
+step): a view, nothing copied.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from .mlp_plan import sm_count
 from .paged_plan import PagedPlan, paged_plan
 from .ragged_attention import paged_gather_dense
 
-__all__ = ["KERNEL", "attend_dense_gqa", "paged_attention", "plain"]
+__all__ = ["KERNEL", "attend_dense_gqa", "dense_attention",
+           "paged_attention", "plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "pt_paged_attention",
@@ -96,7 +103,9 @@ def launch(q, k_pool, v_pool, block_tables, lens, scale: float,
     may pass other spans)."""
     out = torch.empty_like(q)
     stream = stream_of(q)
-    *args, _ = _launch_args(plan, q.device, stream)
+    capturing = q.is_cuda and torch.cuda.is_current_stream_capturing()
+    get = _launch_args.__wrapped__ if capturing else _launch_args
+    *args, _ = get(plan, q.device, stream)
     b, h, d = q.shape
     nb, page, h_kv, _ = k_pool.shape
     KERNEL.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -130,3 +139,25 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens,
         return torch.empty_like(q)
     plan = paged_plan(b, h, h_kv, d, page, mb, q.dtype, sm_count(q.device))
     return launch(q, k_pool, v_pool, block_tables, lens, scale, plan)
+
+
+def dense_attention(q, k_cache, v_cache, lens,
+                    scale: Optional[float] = None):
+    """q (B, H, D) attends positions ``[0, lens)`` of dense (B, S, H_kv, D)
+    caches -> (B, H, D) in q's dtype.  CUDA tensors launch the paged
+    kernel with the caches as the pools (page = S, table
+    ``arange(B)[:, None]``, made per call so that a captured graph owns
+    it) and q cast to the caches' dtype, the one dtype the kernel reads;
+    a cache the kernel cannot take raises.  CPU tensors run
+    :func:`attend_dense_gqa` (NaN where ``lens == 0``; the kernel gives
+    zeros there)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not on_cuda("paged_attention", q, k_cache, v_cache, lens,
+                   kernel=KERNEL):
+        return attend_dense_gqa(q, k_cache, v_cache, lens, scale)
+    table = torch.arange(q.shape[0], dtype=torch.int32,
+                         device=q.device)[:, None]
+    out = paged_attention(q.to(k_cache.dtype), k_cache, v_cache, table,
+                          lens, scale)
+    return out.to(q.dtype)

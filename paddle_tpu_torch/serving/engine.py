@@ -52,7 +52,6 @@ preemption/swap, int8 KV pools, telemetry and fault sites.
 from __future__ import annotations
 
 import collections
-import hashlib
 import itertools
 from typing import Dict, List, NamedTuple, Optional
 
@@ -60,6 +59,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.random import fold_in
 from ..ops import cuda as _kernels
 from .block_allocator import PagedKVCache, PrefixCache
 from .errors import AdmissionError, BudgetUnsatisfiable, UnknownAdapter
@@ -95,15 +95,6 @@ def _paged_supported(model) -> bool:
     return cls is not None and getattr(cls, "supports_paged", False)
 
 
-def _draw_seed(key: int, seed: int, emit: int) -> int:
-    """The generator seed of one temperature draw: a pure function of
-    (engine seed, request sample seed, emit index), so a stream is
-    reproducible within the port whatever else shares the batch."""
-    h = hashlib.blake2b(digest_size=8)
-    h.update(np.asarray([key, seed, emit], np.int64).tobytes())
-    return int.from_bytes(h.digest(), "little") & 0x7FFFFFFFFFFFFFFF
-
-
 def _sample(logits, temps, key: int, seeds, emit):
     """Per-slot greedy (temp == 0) or temperature sampling.  ``logits``
     (B, V) on the engine's device; ``temps``/``seeds``/``emit`` host
@@ -116,7 +107,7 @@ def _sample(logits, temps, key: int, seeds, emit):
     out = torch.argmax(lg, dim=-1)
     for b in np.nonzero(temps > 0.0)[0]:
         gen = torch.Generator().manual_seed(
-            _draw_seed(key, int(seeds[b]), int(emit[b])))
+            fold_in(key, int(seeds[b]), int(emit[b])))
         probs = torch.softmax(lg[b].cpu() / max(float(temps[b]), 1e-6),
                               dim=-1)
         out[b] = int(torch.multinomial(probs, 1, generator=gen))

@@ -142,9 +142,11 @@ class StepGraph:
         self._graph, self.output, self.launches = graph, out, delta
         self.captures += 1
 
-    def run(self) -> torch.Tensor:
-        """One step on the loaded inputs; returns the static output."""
-        if not self.capture:
+    def run(self, eager: bool = False) -> torch.Tensor:
+        """One step on the loaded inputs; returns the static output.
+        ``eager`` runs the function on the same buffers without the graph
+        (an in-process eager twin of the captured step)."""
+        if eager or not self.capture:
             return self._eager()
         if self._graph is None:
             raise RuntimeError("StepGraph.run() before prepare(): the step "
