@@ -76,7 +76,26 @@ Phases, each of which fails the run on its own (nothing is caught):
    them sharing a 64-token prefix after a first one finished (prefix
    hits and copy-on-write); checks that all finished, the pool drained
    and each kernel's launch count equals layers x non-empty steps;
-   then the same model, engine and traffic with Engine(weight_quant=
+   spec_engine: the same model behind Engine(spec_decode=True,
+   draft_depth=4) (C stays 16) and a spec-off engine, both captured, in
+   turns in one process: 8 requests filling the 8 slots, each prompt
+   its own seeded 32-token phrase 4 times (128 tokens), 64 new tokens,
+   6 greedy (one repeats another's prompt after its prefill: a prefix
+   hit with copy-on-write) and 2 at temperature 0.8; each kernel's
+   launches (layers x steps) in the counted run, launches per step equal
+   on and off, greedy streams equal to spec-off's under the near-tie
+   rule, temperature streams equal, one capture each; spec_stats,
+   steps, tokens per step, step ms, decode tokens/s and replay ms by
+   CUDA events in turns (on, off, off, on);
+   preempt: on both engines, fresh phrases and a late 300-token prompt
+   at step 16, with the request that borrows the shared prefix
+   preempted at step 16 and the late prompt at step 24 (prefilling),
+   against the same traffic without preemption: greedy streams under the
+   near-tie rule, temperature streams equal across the two engines,
+   pages swapped out and in with ms and GB/s per swap (CUDA events),
+   the borrowed pages' refcounts before and after, the pools'
+   addresses unchanged, one capture, prefix hits afterwards;
+   then the engine phase's model, engine and traffic with Engine(weight_quant=
    "int8") and again "int4": the quantized kernel launched 225 times per
    step (7 projections x 32 layers + the LM head), ragged attention 32,
    the fused QKV/MLP kernels 0; weight bytes on the card against bf16;
@@ -123,7 +142,12 @@ Phases, each of which fails the run on its own (nothing is caught):
    the same paged check for llama-350m-hd128 cut to 2 layers;
    generate() on llama-350m-hd128 and gpt2-345m cut to 2 layers, f32,
    card against CPU: greedy tokens equal under the near-tie rule, and a
-   sampled call on the card reproducible from seed();
+   sampled call on the card reproducible from seed(); spec_cross_check:
+   llama-350m-hd128 cut to 2 layers, f32, the speculative engine on the
+   card against the same engine on the CPU, with one preemption and one
+   injected serve.step fault (isolation) on both sides: greedy streams
+   equal with 0 exempt, equal draft and acceptance counts, verify spans
+   run, one capture;
 5. train: llama2-7b width cut to 4 layers, amp O2 (bf16 parameters, f32
    master weights), AdamW + ClipGradByGlobalNorm through TrainStep, batch
    2 x 2048, 5 steps on one fixed batch, PyTorch's default precision:
@@ -140,10 +164,11 @@ Phases, each of which fails the run on its own (nothing is caught):
 
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
-quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, generate,
-quant_engine, gpt_engine, gpt_paged, cross_check, quant_cross_check,
-gpt_cross_check, generate_cross_check, train, train_cross_check; smoke: the run's wall seconds from the
-build's start), the card's name and power limit, a
+quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, spec_engine,
+preempt, generate, quant_engine, gpt_engine, gpt_paged, cross_check,
+quant_cross_check, gpt_cross_check, generate_cross_check,
+spec_cross_check, train, train_cross_check; smoke: the run's wall
+seconds from the build's start), the card's name and power limit, a
 {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  The QKV, SwiGLU, int8, int4, megakernel, BGMV and ragged attention
 rows carry `device_ms`, the card's time per call with the host out of
@@ -165,6 +190,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -202,6 +228,7 @@ from paddle_tpu_torch.ops.cuda import paged_attention as PA
 from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.nn import functional as NF
+from paddle_tpu_torch.resilience import clear_faults, install_faults
 from paddle_tpu_torch.serving import (Engine, LoRAPool, PagedKVCache,
                                       random_adapter)
 
@@ -1679,7 +1706,316 @@ def engine_phase():
         e, np.random.default_rng(1), 5, 17, 300, 16, 32))
     graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("engine " + json.dumps(res))
-    del eng, eager, model
+    del eng, eager
+    torch.cuda.empty_cache()
+    return res, model
+
+
+# -- speculative decoding and preemption ---------------------------------------
+
+# the spec phases' traffic: 8 requests of 128-token prompts (a request's
+# own 32-token phrase, 4 times), 64 new tokens each; 6 greedy, 2 at
+# temperature 0.8; the preempt phase's late prompt of 300 tokens
+SPEC_TRAFFIC = {"phrase": 32, "reps": 4, "new": 64, "temperature": 0.8,
+                "late": 300}
+SPEC_DEPTH = 4
+
+
+def spec_traffic(seed, tag):
+    """[(request id, prompt, temperature, step it joins)]: greedy g0-g4
+    and temperature t0, t1 at step 0; g5, g0's prompt again, at step 8,
+    when g0's 128 prompt tokens are written (8 chunks of 16): a full
+    prefix hit whose last page is copied on write."""
+    rng = np.random.default_rng(seed)
+    t = SPEC_TRAFFIC
+    phrases = [rng.integers(0, 32000, size=t["phrase"]) for _ in range(7)]
+    reqs = [(f"{tag}g{i}", np.tile(phrases[i], t["reps"]), 0.0, 0)
+            for i in range(5)]
+    reqs += [(f"{tag}t{i}", np.tile(phrases[5 + i], t["reps"]),
+              t["temperature"], 0) for i in range(2)]
+    reqs.append((f"{tag}g5", np.tile(phrases[0], t["reps"]), 0.0, 8))
+    return reqs
+
+
+def spec_run(eng, reqs, on_step=None, new=SPEC_TRAFFIC["new"]):
+    """Serve ``reqs`` (spec_traffic's form) to the end, step by step;
+    ``on_step(eng, i)`` runs before step ``i``.  Returns the streams and,
+    per run: steps, tokens, wall ms per step (each step ends in the
+    host's read of its samples), decode tokens/s over the steps in which
+    no request was prefilling or waiting, and the replays' device ms per
+    step (CUDA events)."""
+    pending = sorted(reqs, key=lambda r: r[3])
+    steps0, tokens0 = eng.steps, eng.tokens_emitted
+    graph = eng._graph
+    graph.replay_events = []
+    walls, decode_steps, decode_ms, decode_tokens, i = [], 0, 0.0, 0, 0
+    t_run = time.perf_counter()
+    while pending or eng.has_work():
+        while pending and pending[0][3] <= i:
+            rid, prompt, temp, _ = pending.pop(0)
+            eng.add_request(prompt, max_new_tokens=new, temperature=temp,
+                            request_id=rid)
+        if on_step is not None:
+            on_step(eng, i)
+        decode = not eng.scheduler.waiting and not any(
+            st.prefilling for _, st in eng.scheduler.active())
+        t0 = time.perf_counter()
+        n = len(eng.step())
+        ms = (time.perf_counter() - t0) * 1e3
+        walls.append(ms)
+        if decode:
+            decode_steps += 1
+            decode_ms += ms
+            decode_tokens += n
+        i += 1
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_run) * 1e3
+    events, graph.replay_events = graph.replay_events, None
+    steps, tokens = eng.steps - steps0, eng.tokens_emitted - tokens0
+    out = {rid: eng.output_ids(rid) for rid, *_ in reqs}
+    for rid, *_ in reqs:
+        assert len(out[rid]) == new, (rid, len(out[rid]))
+    return out, {"steps": steps, "tokens": tokens,
+                 "tokens_per_step": tokens / steps,
+                 "step_ms": statistics.mean(walls), "wall_ms": wall_ms,
+                 "decode_steps": decode_steps,
+                 "decode_tok_s": decode_tokens / decode_ms * 1e3
+                 if decode_ms else None,
+                 "replay_device_ms": replay_ms(events) / len(events)
+                 if events else None}
+
+
+def spec_engine_phase(model):
+    """The engine phase's llama2-7b behind a speculative engine
+    (draft_depth 4, so C stays 16) and a spec-off engine, both captured,
+    in turns in one process: the counted run with each kernel's launches
+    (layers x steps), greedy streams of the spec engine equal to spec-
+    off's under the near-tie rule, temperature streams equal token for
+    token, launches per step equal on and off, one capture each; then
+    step ms, tokens per step, decode tokens/s and replay ms in turns (on,
+    off, off, on; each pair on fresh traffic)."""
+    layers = model.cfg.num_hidden_layers
+    geom = dict(max_batch=8, max_seq_len=512, page_size=16)
+    t0 = time.perf_counter()
+    engines = {"on": Engine(model, spec_decode=True, draft_depth=SPEC_DEPTH,
+                            **geom).warmup(),
+               "off": Engine(model, **geom).warmup()}
+    setup_s = time.perf_counter() - t0
+    for eng in engines.values():
+        assert (eng.captures, eng.replays) == (1, 0)
+        assert eng.prefill_chunk == 16, eng.prefill_chunk
+    reqs = spec_traffic(40, "c")
+    engines["off"].margins = {}
+    runs, outs = {}, {}
+    for tag in ("off", "on"):
+        eng = engines[tag]
+        reset_launches()
+        outs[tag], run = spec_run(eng, reqs)
+        launches = {k: v for k, v in kernel_launches().items()
+                    if k in SERVING}
+        for name, n in launches.items():
+            assert n == layers * run["steps"], (tag, name, n, run["steps"])
+        run["launches"] = launches
+        run["launches_per_step"] = eng.launches_per_step()
+        assert eng.replays == run["steps"], (eng.replays, run["steps"])
+        runs[tag] = run
+    margins, engines["off"].margins = engines["off"].margins, None
+    assert runs["on"]["launches_per_step"] == \
+        runs["off"]["launches_per_step"], runs
+    greedy = [rid for rid, _, temp, _ in reqs if temp == 0.0]
+    sampled = [rid for rid, _, temp, _ in reqs if temp > 0.0]
+    streams = streams_vs_eager({r: outs["off"][r] for r in greedy},
+                               {r: outs["on"][r] for r in greedy}, margins)
+    for rid in sampled:
+        assert outs["on"][rid] == outs["off"][rid], rid
+    stats = engines["on"].spec_stats()
+    for eng in engines.values():
+        assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+        assert eng.prefix_stats()["hits"] > 0, eng.prefix_stats()
+        assert eng.prefix_stats()["cow_copies"] > 0, eng.prefix_stats()
+    turns = []
+    for i, tag in enumerate(("on", "off", "off", "on")):
+        _, row = spec_run(engines[tag], spec_traffic(41 + i // 2, f"w{i}"))
+        turns.append({"engine": tag, **row})
+    mean = lambda tag, key: statistics.mean(r[key] for r in turns
+                                            if r["engine"] == tag)
+    res = {"setup_s": setup_s, "draft_depth": SPEC_DEPTH,
+           "captures": {t: e.captures for t, e in engines.items()},
+           "replays": {t: e.replays for t, e in engines.items()},
+           "runs": runs, "spec_stats": stats,
+           "greedy_streams": streams,
+           "sampled_streams_equal": len(sampled),
+           "turns": turns,
+           "step_ms": {t: mean(t, "step_ms") for t in engines},
+           "tokens_per_step": {t: mean(t, "tokens_per_step")
+                               for t in engines},
+           "decode_tok_s": {t: mean(t, "decode_tok_s") for t in engines},
+           "replay_device_ms": {t: mean(t, "replay_device_ms")
+                                for t in engines}}
+    for eng in engines.values():
+        assert eng.captures == 1, eng.captures
+    res["wall_s"] = time.perf_counter() - t0
+    log("spec_engine " + json.dumps(res))
+    return engines
+
+
+def preempt_phase(engines):
+    """On the spec engine and the spec-off one: spec_traffic on fresh
+    phrases plus a late 300-token prompt at step 16, first with two
+    preemptions -- at step 16 the running request that borrows g0's
+    prefix pages (g5), which frees a slot for the late prompt, and at
+    step 24 the late prompt itself, still prefilling (19 chunks of 16) --
+    then again without preemption (the reference; its prompts now hit the
+    prefix cache).  Every greedy stream equals the reference's under the
+    near-tie rule.  A temperature stream's seed folds in the request's
+    submission ordinal on its engine (duplicate prompts draw distinct
+    streams), so the reference run draws other ones by design: the two
+    engines' preempted runs, at equal ordinals, must draw the same
+    temperature streams instead.  Also printed and checked: the swaps'
+    pages, ms and GB/s (CUDA events around each call), the borrowed
+    pages' refcounts before and after the first preemption, one capture
+    each, the pools' addresses unchanged, and the prefix cache still hits
+    afterwards."""
+    t0 = time.perf_counter()
+    late = np.random.default_rng(43).integers(
+        0, 32000, size=SPEC_TRAFFIC["late"])
+    res, sampled = {}, {}
+    for tag, eng in engines.items():
+        rows = {"out": [], "in": []}
+        swap = eng._swap
+        swap_out, swap_in = swap.swap_out, swap.swap_in
+
+        def timed(kind, fn):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                host = fn(*args)
+                end.record()
+                payload = host if kind == "out" else args[1]
+                rows[kind].append((start, end, len(args[0]),
+                                   payload.nbytes()))
+                return host
+            return call
+
+        swap.swap_out = timed("out", swap_out)
+        swap.swap_in = timed("in", swap_in)
+        ptrs = eng._ptrs(eng.kv.caches)
+        pre = spec_traffic(44, f"{tag}p") + [(f"{tag}pl", late, 0.0, 16)]
+        seen = {}
+
+        def on_step(e, i):
+            if i == 16:
+                st = e._states[f"{tag}pg5"]
+                assert st.num_shared > 0 and st.slot is not None
+                # the pages it still borrows (the last hit page was
+                # copied on write)
+                shared = [int(b) for b in
+                          st.table[:st.cached_tokens // e.page_size]]
+                seen["refcounts_before"] = [e.kv.allocator.refcount(b)
+                                            for b in shared]
+                assert e.preempt(f"{tag}pg5")
+                seen["refcounts_after"] = [e.kv.allocator.refcount(b)
+                                           for b in shared]
+            if i == 24:
+                st = e._states[f"{tag}pl"]
+                assert st.slot is not None and st.prefilling, st.kv_len
+                seen["late_kv_len"] = st.kv_len
+                assert e.preempt(f"{tag}pl")
+
+        got, run = spec_run(eng, pre, on_step=on_step)
+        torch.cuda.synchronize()
+        assert eng._ptrs(eng.kv.caches) == ptrs == eng._pool_ptrs
+        del swap.swap_out, swap.swap_in
+        for rid in ("pg5", "pl"):
+            assert eng._states[f"{tag}{rid}"].preempts == 1
+        hits = eng.prefix_stats()["hits"]
+        base = [(f"{tag}u{rid[len(tag) + 1:]}", *rest) for rid, *rest in pre]
+        eng.margins = {}
+        ref, _ = spec_run(eng, base)
+        margins, eng.margins = eng.margins, None
+        assert eng.prefix_stats()["hits"] > hits, eng.prefix_stats()
+        rename = {u[0]: p_[0] for u, p_ in zip(base, pre) if u[2] == 0.0}
+        streams = streams_vs_eager(
+            {rename[r]: ref[r] for r in rename},
+            {r: got[r] for r in rename.values()},
+            {rename[r]: margins[r] for r in rename})
+        sampled[tag] = [got[rid] for rid, _, temp, _ in pre if temp > 0.0]
+        assert eng.kv_blocks_used == 0 and eng.captures == 1
+        swaps = {kind: [{"pages": n, "bytes": b,
+                         "ms": s_.elapsed_time(e_),
+                         "gb_s": b / s_.elapsed_time(e_) / 1e6}
+                        for s_, e_, n, b in r] for kind, r in rows.items()}
+        assert len(swaps["out"]) == len(swaps["in"]) == 2, swaps
+        res[tag] = {"captures": eng.captures, "replays": eng.replays,
+                    "pages_out": swap.pages_out, "pages_in": swap.pages_in,
+                    "swaps": swaps, **seen, "run": run,
+                    "streams": streams,
+                    "pool_addresses_unchanged": True}
+    assert sampled["on"] == sampled["off"]
+    res["sampled_streams_equal_on_off"] = len(sampled["on"])
+    res["wall_s"] = time.perf_counter() - t0
+    log("preempt " + json.dumps(res))
+    return res
+
+
+def spec_cross_check_phase():
+    """llama-350m-hd128 cut to 2 layers, f32, the same weights on both
+    sides: the speculative engine on the card (captured) against the same
+    engine on the CPU (the plain versions), with one preemption and one
+    injected serve.step fault (the request it hits is isolated: preempted
+    and restored) on both sides; greedy streams equal with 0 exempt, and
+    equal draft and acceptance counts."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                seed=1)
+    cpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                device="cpu", seed=1)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(45)
+    prompts = [np.tile(rng.integers(0, 32000, size=int(n)), 3)
+               for n in rng.integers(8, 30, size=5)]
+    outs = {}
+    for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+        eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                     spec_decode=True, draft_depth=SPEC_DEPTH,
+                     device=dev).warmup()
+        inj = install_faults("serve.step@6")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                rids = [eng.add_request(p, max_new_tokens=24,
+                                        request_id=f"x{i}")
+                        for i, p in enumerate(prompts)]
+                for _ in range(5):
+                    eng.step()
+                victim = min(eng.scheduler.active(),
+                             key=lambda t: t[1].prefilling)[1]
+                victim = victim.request.request_id
+                assert eng.preempt(victim)
+                eng.run()
+        finally:
+            clear_faults()
+        assert inj.fired == [("serve.step", 6)], inj.fired
+        assert eng.kv_blocks_used == 0
+        outs[tag] = ({r: eng.output_ids(r) for r in rids},
+                     eng.spec_stats(), victim,
+                     sum(eng._states[r].preempts for r in rids),
+                     eng.captures)
+    (ref, rstats, rvic, rpre, _), (got, gstats, gvic, gpre, caps) = \
+        outs["cpu"], outs["gpu"]
+    assert got == ref, {r: (ref[r], got[r]) for r in ref if ref[r] != got[r]}
+    assert (gvic, gpre) == (rvic, rpre) == (rvic, 2), (gvic, gpre, rpre)
+    for key in ("proposed", "accepted", "verifies"):
+        assert gstats[key] == rstats[key], (key, gstats, rstats)
+    assert gstats["verifies"] > 0, gstats     # verify spans ran
+    assert caps == 1, caps
+    res = {"requests": len(ref), "equal": len(ref), "exempt": 0,
+           "preempts": gpre, "spec_stats": gstats, "captures": caps,
+           "wall_s": time.perf_counter() - t0}
+    log("spec_cross_check " + json.dumps(res))
+    del gpu, cpu
     torch.cuda.empty_cache()
     return res
 
@@ -2992,7 +3328,11 @@ def main() -> int:
     log("build " + json.dumps({"wall_s": time.perf_counter() - t0,
                                "per_source_s": took}))
     kernel_rows = kernel_phase()
-    engine = engine_phase()
+    engine, model = engine_phase()
+    engines = spec_engine_phase(model)
+    preempt_phase(engines)
+    del engines, model
+    torch.cuda.empty_cache()
     generate_phase()
     quant = {kind: quant_engine_phase(kind) for kind in QUANT}
     mega = mega_engine_phase()
@@ -3007,6 +3347,7 @@ def main() -> int:
     lora_cross_check_phase()
     gpt_cross_check_phase()
     generate_cross_check_phase()
+    spec_cross_check_phase()
     train = train_phase()
     train_cross_check_phase()
     main_rows = {r["name"]: r for r in kernel_rows

@@ -39,6 +39,7 @@ from __future__ import annotations
 import collections
 import hashlib
 import json
+import math
 import struct
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -46,8 +47,10 @@ import numpy as np
 import torch
 
 from ..ops.cuda.ragged_attention import pool_pair
+from ..resilience import _state as _rs_state
 
-__all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache"]
+__all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "SwapManager",
+           "SwapPayload"]
 
 
 class BlockAllocator:
@@ -299,3 +302,145 @@ class PagedKVCache:
     def nbytes(self) -> int:
         per_layer = sum(a.numel() * a.element_size() for a in self.caches[0])
         return per_layer * self.num_layers
+
+
+class SwapPayload(list):
+    """A :meth:`SwapManager.swap_out` payload: one tuple of host tensors
+    per decoder layer, one (n, page, H_kv, D) tensor per pool of the layer
+    (pinned memory when the pools live on the card).  ``ready`` is the
+    CUDA event recorded after the device-to-host copies (None on the
+    CPU): the copies run asynchronously, so read the tensors only after
+    :meth:`synchronize`."""
+
+    ready: Optional[torch.cuda.Event] = None
+
+    def synchronize(self) -> "SwapPayload":
+        """Wait until the copies that fill the payload have finished."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for layer in self for t in layer)
+
+
+class SwapManager:
+    """Host-RAM swap space for preempted requests' KV pages
+    (``paddle_tpu/serving/block_allocator.py`` ``SwapManager``
+    counterpart).
+
+    Instead of rejecting work when the pool is tight, the engine picks a
+    victim, ``swap_out``s the content of its allocated pages -- every
+    layer's rows of every pool of the layer -- into host buffers, frees
+    the blocks, and later ``swap_in``s the bytes into freshly allocated
+    blocks so the request resumes token-identical.  Each pool tuple is
+    walked generically, so pools with scale tensors beside k and v ride
+    the same code.
+
+    Both directions work in chunks of ``chunk`` pages: a gather of the
+    chunk's rows (``index_select``) and its copy to host, or the copy to
+    the card and an in-place ``index_copy_`` into the same pool tensors.
+    The pools never move (a captured step reads them by address) and the
+    spare rows behind them (``PagedKVCache(spare_rows=)``) are never
+    touched.  On the card the host buffers are pinned and the copies are
+    ``non_blocking`` on the current stream, in stream order after the
+    step that wrote the pages; the payload's ``ready`` event marks their
+    end (:class:`SwapPayload`).
+
+    Refcount discipline: swap only COPIES content -- shared prefix-cache
+    pages a victim borrowed are read, never mutated, so they are never
+    swapped out from under the other slots (or cache entries) still
+    referencing them; the victim merely drops its references and
+    re-materializes private copies at restore.
+    """
+
+    def __init__(self, kv: PagedKVCache, chunk: int = 8):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.kv = kv
+        self.chunk = int(chunk)
+        self.pages_out = 0           # lifetime pages swapped to host
+        self.pages_in = 0            # lifetime pages restored
+
+    @property
+    def device(self) -> torch.device:
+        return self.kv.caches[0][0].device
+
+    def _ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.kv.num_blocks):
+            raise ValueError(
+                f"swap of KV blocks {ids.tolist()} outside [0, "
+                f"{self.kv.num_blocks})")
+        return torch.from_numpy(ids).to(self.device)
+
+    def swap_out(self, block_ids: Sequence[int]) -> SwapPayload:
+        """Copy ``block_ids``'s rows from every layer's pools to host;
+        returns the payload ``swap_in`` takes.  Read-only on the pools."""
+        fi = _rs_state.FAULTS[0]
+        if fi is not None:
+            fi("serve.swap")
+        ids = self._ids(block_ids)
+        n = int(ids.numel())
+        pin = self.device.type == "cuda"
+        host = self._host_buffers(n, pin)
+        for lo in range(0, n, self.chunk):
+            sel = ids[lo:lo + self.chunk]
+            for layer, hlayer in zip(self.kv.caches, host):
+                for c, h in zip(layer, hlayer):
+                    h[lo:lo + self.chunk].copy_(c.index_select(0, sel),
+                                                non_blocking=pin)
+        if pin:
+            host.ready = torch.cuda.Event()
+            host.ready.record()
+        self.pages_out += n
+        return host
+
+    def _host_buffers(self, n: int, pin: bool) -> SwapPayload:
+        """Host tensors for ``n`` pages of every pool, views of ONE
+        allocation (pinned on the card: one page-locking call per
+        payload, not one per pool), each piece 16-byte aligned."""
+        shapes = [[((n,) + tuple(c.shape[1:]), c.dtype) for c in layer]
+                  for layer in self.kv.caches]
+        sizes = [math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                 for layer in shapes for shape, dt in layer]
+        buf = torch.empty(sum(-(-b // 16) * 16 for b in sizes),
+                          dtype=torch.uint8, pin_memory=pin)
+        host, off, it = SwapPayload(), 0, iter(sizes)
+        for layer in shapes:
+            views = []
+            for shape, dt in layer:
+                b = next(it)
+                views.append(buf[off:off + b].view(dt).view(shape))
+                off += -(-b // 16) * 16
+            host.append(tuple(views))
+        return host
+
+    def swap_in(self, block_ids: Sequence[int], host: SwapPayload) -> None:
+        """Write a ``swap_out`` payload into ``block_ids`` (freshly
+        allocated blocks) across every layer's pools, in place."""
+        fi = _rs_state.FAULTS[0]
+        if fi is not None:
+            fi("serve.swap")
+        ids = self._ids(block_ids)
+        n = int(ids.numel())
+        if len(host) != len(self.kv.caches) or any(
+                len(hl) != len(cl) or int(h.shape[0]) != n
+                or h.shape[1:] != c.shape[1:] or h.dtype != c.dtype
+                for hl, cl in zip(host, self.kv.caches)
+                for h, c in zip(hl, cl)):
+            raise ValueError(
+                f"swap payload does not match {n} pages of this engine's "
+                "pools (layers, pools per layer, page geometry, dtype)")
+        pin = self.device.type == "cuda"
+        if pin and host.ready is not None:
+            # the payload's own copies first, whatever stream made them
+            torch.cuda.current_stream(self.device).wait_event(host.ready)
+        for lo in range(0, n, self.chunk):
+            sel = ids[lo:lo + self.chunk]
+            for layer, hlayer in zip(self.kv.caches, host):
+                for c, h in zip(layer, hlayer):
+                    c.index_copy_(0, sel, h[lo:lo + self.chunk].to(
+                        self.device, non_blocking=pin))
+        self.pages_in += n

@@ -44,16 +44,37 @@ while :attr:`replays` counts the steps.  The span write sends dead rows
 to spare rows behind the pools, so the step never syncs the host; the
 copy-on-write page copy, sampling and the margins run eagerly around
 the replay, in stream order.  On the CPU the same step runs eagerly on
-the same static buffers.  Not ported yet
-(ROADMAP.md): speculative decoding, meshes, disaggregated roles,
-preemption/swap, int8 KV pools, telemetry and fault sites.
+the same static buffers.
+
+Robustness, as in the reference: :meth:`preempt` swaps a running
+request's KV pages to host memory (``SwapManager``) instead of rejecting
+new work, and re-admission restores them in place, token-identical; a
+host-side failure in one request's bookkeeping -- or an injected fault
+at the ``serve.admit`` / ``serve.cow`` / ``serve.prefill`` /
+``serve.step`` / ``serve.swap`` sites (``resilience.faults``) -- is
+confined to THAT request (rewind, preempt, re-admit).  The sites fire on
+the host around the replay, never inside it: a fault never reaches the
+captured graph or makes the engine capture again.
+
+Speculative decoding (``spec_decode``): a host-side n-gram proposer
+(``serving/spec.py``) drafts up to ``draft_depth`` tokens per greedy
+decode slot, and the SAME captured step verifies each
+``[pending, d_1..d_k]`` span like a prefill chunk; the step then returns
+the LM head over every span position and the host keeps the longest
+accepted prefix plus one bonus token.  Draft length is span-length data:
+every depth 0..K rides the one capture.
+
+Not ported yet (ROADMAP.md): meshes, disaggregated roles, int8 KV pools,
+telemetry and ``slo_capture``.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
-from typing import Dict, List, NamedTuple, Optional
+import traceback
+import warnings
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,12 +82,20 @@ import torch
 from ..core.device import resolve_device
 from ..core.random import fold_in
 from ..ops import cuda as _kernels
-from .block_allocator import PagedKVCache, PrefixCache
-from .errors import AdmissionError, BudgetUnsatisfiable, UnknownAdapter
+from ..resilience import _state as _rs_state
+from ..resilience.retry import RetryPolicy
+from .block_allocator import PagedKVCache, PrefixCache, SwapManager
+from .errors import (AdmissionError, BudgetUnsatisfiable, QueueFull,
+                     UnknownAdapter)
 from .graph import StepGraph
 from .scheduler import Request, RequestState, Scheduler
 
 __all__ = ["Engine", "TokenEvent"]
+
+# Incremental detokenization re-runs the tokenizer over a bounded tail
+# window of this many tokens (re-anchoring at half-window), keeping
+# streaming-text cost linear in output length instead of quadratic.
+_DETOK_WINDOW = 64
 
 
 class TokenEvent(NamedTuple):
@@ -74,7 +103,7 @@ class TokenEvent(NamedTuple):
 
     request_id: str
     token_id: int
-    text: Optional[str]          # detokenized text (not ported: None)
+    text: Optional[str]          # incremental detokenized text, if enabled
     finished: bool
     finish_reason: Optional[str]  # "eos" | "length" when finished
 
@@ -106,12 +135,35 @@ def _sample(logits, temps, key: int, seeds, emit):
     lg = logits.float()
     out = torch.argmax(lg, dim=-1)
     for b in np.nonzero(temps > 0.0)[0]:
-        gen = torch.Generator().manual_seed(
-            fold_in(key, int(seeds[b]), int(emit[b])))
-        probs = torch.softmax(lg[b].cpu() / max(float(temps[b]), 1e-6),
-                              dim=-1)
-        out[b] = int(torch.multinomial(probs, 1, generator=gen))
+        out[b] = _draw(lg[b], float(temps[b]), key, int(seeds[b]),
+                       int(emit[b]))
     return out
+
+
+def _draw(row, temp: float, key: int, seed: int, index: int) -> int:
+    """One temperature draw from the (V,) logits ``row`` at emit index
+    ``index``: ``softmax(row / temp)`` with a CPU generator seeded per
+    (engine seed, request seed, emit index)."""
+    gen = torch.Generator().manual_seed(fold_in(key, seed, index))
+    probs = torch.softmax(row.float().cpu() / max(temp, 1e-6), dim=-1)
+    return int(torch.multinomial(probs, 1, generator=gen))
+
+
+def _sample_span(logits, temps, key: int, seeds, emit, draws):
+    """Per-POSITION sampling over a whole ``(B, C, V)`` span -- the
+    speculative verify step's sampler (the reference's ``_sample_span``).
+    Greedy is the argmax of every position, on the logits' device.  A
+    temperature slot ``b`` draws only at the positions ``draws[b]`` the
+    host consumes, position ``j`` at emit index ``emit[b] + j`` through
+    :func:`_draw`, so the token drawn at a given emit index is
+    :func:`_sample`'s, whatever mix of spans produced it.  Returns (B, C)
+    int64 numpy."""
+    out = torch.argmax(logits, dim=-1).cpu()
+    for b, positions in draws.items():
+        for j in positions:
+            out[b, j] = _draw(logits[b, j], float(temps[b]), key,
+                              int(seeds[b]), int(emit[b]) + j)
+    return out.numpy()
 
 
 class Engine:
@@ -143,9 +195,30 @@ class Engine:
     requests shares the one step (it does not compose with
     ``weight_quant``).
 
+    ``detokenize``: optional ``callable(list[int]) -> str``; when given,
+    token events and ``on_token`` callbacks carry the incremental text,
+    computed over a sliding tail window of the output (the last
+    ``_DETOK_WINDOW`` tokens), so a tokenizer whose suffix output differs
+    from the suffix of the full output may show a seam at a re-anchor.
+
+    ``max_queue``: bound on the waiting queue; beyond it ``add_request``
+    raises :class:`serving.errors.QueueFull` (default unbounded).
+    ``retry``: the :class:`resilience.RetryPolicy` around the preemption
+    swaps (default 3 attempts, 20 ms base backoff).
+
+    ``spec_decode``: self-speculative decoding with n-gram drafts of up
+    to ``draft_depth`` tokens per greedy decode slot (temperature slots
+    never draft).  Greedy outputs stay token-identical to the engine
+    without it, and a temperature stream draws the same tokens (keys per
+    emitted-token index).  It widens the step's span to
+    ``max(prefill_chunk, draft_depth + 1)`` before the step is built, so
+    the engine still captures one step.  It does not compose with
+    ``lora`` yet.
+
     ``margins``: set it to a dict to record, per request id, the top-2
     logit margin of every emitted token (the near-tie rule of the
-    token-identity checks); None (the default) records nothing.
+    token-identity checks; under ``spec_decode`` the margin at the span
+    position the token came from); None (the default) records nothing.
     """
 
     def __init__(self, model, *, max_batch: int = 8,
@@ -153,10 +226,14 @@ class Engine:
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
-                 enable_prefix_caching: bool = True, seed: int = 0,
+                 enable_prefix_caching: bool = True,
+                 detokenize: Optional[Callable] = None, seed: int = 0,
                  keep_finished: int = 1024,
-                 weight_quant: Optional[str] = None, lora=None,
-                 device=None, _eager_step: bool = False):
+                 max_queue: Optional[int] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 weight_quant: Optional[str] = None,
+                 spec_decode: bool = False, draft_depth: int = 4,
+                 lora=None, device=None, _eager_step: bool = False):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
@@ -181,6 +258,24 @@ class Engine:
             raise ValueError(
                 f"prefill_chunk={prefill_chunk} must be in "
                 f"[1, max_seq_len={max_seq_len}]")
+        self.spec = None
+        self.draft_depth = 0
+        if spec_decode:
+            if not 1 <= int(draft_depth) <= max_seq_len - 1:
+                raise ValueError(
+                    f"draft_depth={draft_depth} must be in "
+                    f"[1, max_seq_len-1={max_seq_len - 1}]")
+            if lora is not None:
+                raise NotImplementedError(
+                    "Engine(spec_decode=True, lora=...) is not ported yet "
+                    "(ROADMAP.md, queue 1)")
+            self.draft_depth = int(draft_depth)
+            from .spec import NgramProposer
+            self.spec = NgramProposer(self.draft_depth)
+            # the verify span [pending, d_1..d_K] must fit the one (B, C)
+            # step: widen C once, HERE, before the step is built -- every
+            # draft depth 0..K then rides the capture as span-length data
+            prefill_chunk = max(int(prefill_chunk), self.draft_depth + 1)
         max_pos = getattr(model.cfg, "max_position_embeddings", None)
         if max_pos is not None and max_seq_len > max_pos:
             raise ValueError(
@@ -232,6 +327,14 @@ class Engine:
                                    self.max_blocks_per_seq,
                                    self.kv.allocator, self.kv.oob_block,
                                    prefix_cache=self.prefix_cache)
+        # preemption/restore: host-memory page swap plus the retry policy
+        # around it, so a transient (or injected) fault becomes a retry,
+        # not a dead request
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self._retry = retry if retry is not None else \
+            RetryPolicy(max_attempts=3, backoff_s=0.02)
+        self._swap = SwapManager(self.kv, chunk=self.max_blocks_per_seq)
+        self._detokenize = detokenize
         self._key = int(seed)
         self._states: Dict[str, RequestState] = {}
         # only the `keep_finished` most recently finished requests stay
@@ -249,9 +352,9 @@ class Engine:
         self.margins: Optional[Dict[str, List[float]]] = None
         self.lora = lora
         self._last_launches: Optional[Dict[str, int]] = None
-        # the step's static inputs and output; captured on the card unless
-        # built eager (a switch for in-process comparisons, never taken on
-        # a failure)
+        # the step's static inputs and output ((B, V) logits, (B, C, V)
+        # under spec_decode); captured on the card unless built eager (a
+        # switch for in-process comparisons, never taken on a failure)
         self._graph = StepGraph(
             self._step_fn, {"tokens": (b, c),
                             "tables": (b, self.max_blocks_per_seq),
@@ -281,13 +384,18 @@ class Engine:
         attends in a single ragged pass; the last REAL span position's
         hidden state of each slot goes through the LM head.  ``adapters``
         (B,) int32 are the slots' LoRA stack indices (0: base).  Returns
-        the (B, V) logits."""
+        the (B, V) logits; a speculative engine's step returns the LM head
+        over EVERY span position, (B, C, V): position ``j``'s argmax is
+        the model's token after consuming draft ``j``, so verifying needs
+        no second step."""
         lora = None if self.lora is None else \
             (self.lora.device_stacks(), adapters)
         hidden, caches = self.model.model(
             tokens, caches=self.kv.caches, seq_lens=lens,
             block_tables=tables, span_starts=starts, lora=lora)
         self._check_pools(caches)
+        if self.spec is not None:
+            return self.model.logits(hidden)
         idx = torch.clamp(lens.long() - 1, 0, tokens.shape[1] - 1)
         h_last = hidden[torch.arange(hidden.shape[0],
                                      device=hidden.device), idx]
@@ -329,19 +437,29 @@ class Engine:
     def add_request(self, prompt_ids, max_new_tokens: int = 16,
                     temperature: float = 0.0,
                     eos_token_id: Optional[int] = None,
+                    on_token: Optional[Callable] = None,
                     request_id: Optional[str] = None,
+                    tenant: Optional[str] = None,
                     adapter: Optional[str] = None) -> str:
         """Queue one request; returns its id.  It joins the running batch
         at the next ``step()`` with a free slot and enough free blocks for
         its budget (prompt + max_new_tokens, minus any prefix-cache hit).
+        ``on_token(request_id, token_id, text)`` is called for every
+        emitted token (a callback that raises is warned about, never
+        tears down the step); ``tenant`` is carried on the request.
         ``adapter`` names a LoRA adapter resident in this engine's pool;
         the request then decodes through ``W + A_k B_k``.  Rejections are
-        typed (``serving.errors``): :class:`UnknownAdapter` for an
-        adapter the pool has not loaded (or an engine without a pool)."""
+        typed (``serving.errors``, all ``ValueError`` subclasses):
+        :class:`QueueFull` when ``max_queue`` waiting requests are queued
+        already, :class:`BudgetUnsatisfiable` when the request can never
+        fit this engine, :class:`UnknownAdapter` for an adapter the pool
+        has not loaded (or an engine without a pool), plain
+        :class:`AdmissionError` for a duplicate ``request_id``."""
         req = Request(prompt_ids=prompt_ids,
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature),
-                      eos_token_id=eos_token_id, request_id=request_id,
+                      eos_token_id=eos_token_id, on_token=on_token,
+                      request_id=request_id, tenant=tenant,
                       adapter=adapter)
         if adapter is not None:
             if self.lora is None:
@@ -365,6 +483,11 @@ class Engine:
             raise AdmissionError(
                 f"request_id {req.request_id!r} is already in use by a "
                 "live or retained request")
+        if self.max_queue is not None \
+                and self.scheduler.queue_depth() >= self.max_queue:
+            raise QueueFull(
+                f"waiting queue is at max_queue={self.max_queue} -- retry "
+                "later")
         p = int(req.prompt_ids.size)
         if p + req.max_new_tokens > self.max_seq_len:
             raise BudgetUnsatisfiable(
@@ -400,6 +523,16 @@ class Engine:
         s["cow_copies"] = self._cow_copies
         return s
 
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative-decoding counters (proposed/accepted/accept_rate/
+        verifies/draft_hits/draft_misses/errors/tracked_requests) --
+        zeros when ``spec_decode`` is off."""
+        if self.spec is None:
+            return {"proposed": 0, "accepted": 0, "accept_rate": 0.0,
+                    "verifies": 0, "draft_hits": 0, "draft_misses": 0,
+                    "errors": 0, "tracked_requests": 0}
+        return self.spec.stats()
+
     def lora_stats(self) -> Dict[str, float]:
         """Multi-LoRA pool counters (active_adapters/max_adapters/rank/
         loads/evictions/live_refs) -- zeros when no pool is attached."""
@@ -429,27 +562,110 @@ class Engine:
         return None if self._last_launches is None \
             else dict(self._last_launches)
 
+    # -- preemption / restore / fault isolation ----------------------------
+
+    def preempt(self, request_id: str, *, requeue_head: bool = False) -> bool:
+        """Swap a RUNNING request's KV pages to host memory, free its
+        blocks and slot, and requeue it for transparent restoration (at
+        the queue head with ``requeue_head``) -- the alternative to
+        rejecting new work when the pool is tight.
+
+        Returns False when the request is not in a slot (waiting, already
+        preempted, finished, or unknown).  The restored request resumes
+        token-identical: the swap round-trips the exact page bytes, and
+        shared prefix pages are only COPIED -- never pulled out from
+        under the other slots referencing them."""
+        st = self._states.get(request_id)
+        if st is None or st.finished or st.slot is None:
+            return False
+        self._preempt_state(st, head=requeue_head)
+        return True
+
+    def _preempt_state(self, st: RequestState, head: bool) -> None:
+        pages = -(-st.kv_len // self.page_size)
+        host = None
+        if pages:
+            ids = [int(b) for b in st.table[:pages]]
+            host = self._retry.run(self._swap.swap_out, ids,
+                                   site="serve.swap")
+        self.scheduler.release_slot(st)
+        # everything comes back private at restore: the borrowed pages
+        # count as privatized from here on
+        st.num_cowed = st.num_shared
+        st.swapped = (pages, host)
+        st.preempts += 1
+        self.scheduler.requeue(st, head=head)
+
+    def _restore(self, st: RequestState) -> None:
+        """Write a freshly re-admitted request's host payload into its new
+        (all-private) blocks; prefill/decode resumes at kv_len."""
+        pages, host = st.swapped
+        if pages:
+            ids = [int(b) for b in st.table[:pages]]
+            self._retry.run(self._swap.swap_in, ids, host,
+                            site="serve.swap")
+        st.swapped = None
+
+    def _isolate(self, st: RequestState, exc: Exception) -> None:
+        """Confine a failing request to ITS slot: the captured step and
+        the batch's other requests survive; the victim is preempted to
+        host and re-admitted at the queue head (it was mid-flight).
+        Greedy outputs stay token-identical because the caller rewound
+        the host bookkeeping to the pre-span snapshot and re-running a
+        span is idempotent (same values, same positions)."""
+        warnings.warn(
+            f"request {st.request.request_id!r} failed host-side and was "
+            f"isolated (preempt + re-admit; {type(exc).__name__}: {exc})",
+            RuntimeWarning, stacklevel=3)
+        self._preempt_state(st, head=True)
+
     # -- the loop ----------------------------------------------------------
 
     def _admit_all(self) -> None:
+        """Admission with the ``serve.admit`` fault site: a fault here
+        leaves the queue intact (nothing is allocated yet) and admission
+        resumes next step.  A preempted request is restored right after
+        its re-admission."""
+        fi = _rs_state.FAULTS[0]
         while self.scheduler.waiting:
-            if self.scheduler.admit_next() is None:
+            if fi is not None:
+                try:
+                    fi("serve.admit")
+                except Exception:  # noqa: BLE001 -- retried next step
+                    break
+            st = self.scheduler.admit_next()
+            if st is None:
                 break
+            if st.swapped is not None:
+                self._restore(st)
 
-    def _run_cow(self, plan) -> None:
+    def _run_cow(self, plan):
         """Copy-on-write: any span about to write into a borrowed (shared)
         page gets a private copy first -- the reserved spare block takes
         the page's content via one fixed-shape copy, the table is
-        repointed, and the shared reference is dropped."""
+        repointed, and the shared reference is dropped.  Returns the plan
+        minus any request isolated by a ``serve.cow`` fault (fired BEFORE
+        that request's table is touched)."""
+        fi = _rs_state.FAULTS[0]
         copies = []
-        for _i, st, n, _is_prefill in plan:
+        dropped = []
+        for i, st, n, _is_prefill in plan:
             if not st.borrowed:
                 continue
             first = st.kv_len // self.page_size
             last = (st.kv_len + n - 1) // self.page_size
-            for pg in range(first, last + 1):
-                if pg not in st.borrowed:
+            pgs = [pg for pg in range(first, last + 1) if pg in st.borrowed]
+            if not pgs:
+                continue
+            if fi is not None:
+                try:
+                    fi("serve.cow")
+                except Exception as e:  # noqa: BLE001
+                    # nothing mutated for this request yet this step
+                    self._isolate(st, e)
+                    dropped.append(i)
                     continue
+            for pg in pgs:
                 src = int(st.table[pg])
                 dst = st.cow_spare.pop(pg)
                 st.table[pg] = dst
@@ -458,6 +674,8 @@ class Engine:
                 st.blocks.remove(src)
                 self.kv.allocator.free([src])   # drop OUR shared ref
                 copies.append((src, dst))
+        if dropped:
+            plan = [it for it in plan if it[0] not in dropped]
         k = self.max_batch
         for lo in range(0, len(copies), k):
             src = np.full((k,), self.kv.oob_block, np.int32)
@@ -466,6 +684,7 @@ class Engine:
                 src[j], dst[j] = s_, d_
             self._cow_fn(self._tensor(src), self._tensor(dst))
         self._cow_copies += len(copies)
+        return plan
 
     def _register_prefix(self, st: RequestState) -> None:
         """Index this request's freshly written full prompt pages so later
@@ -481,6 +700,19 @@ class Engine:
         st.output_ids.append(token)
         if self.margins is not None:
             self.margins.setdefault(req.request_id, []).append(margin)
+        text = None
+        if self._detokenize is not None:
+            # linear-cost streaming: detokenize only a bounded tail
+            # window, emit its growth, and re-anchor at half-window so
+            # per-token work never scales with the full output length
+            w = st.detok_offset
+            full = self._detokenize(list(st.output_ids[w:]))
+            text = full[st.text_len:]
+            st.text_len = len(full)
+            if len(st.output_ids) - w >= _DETOK_WINDOW:
+                st.detok_offset = len(st.output_ids) - _DETOK_WINDOW // 2
+                st.text_len = len(self._detokenize(
+                    list(st.output_ids[st.detok_offset:])))
         done_eos = (req.eos_token_id is not None
                     and token == req.eos_token_id)
         done_len = len(st.output_ids) >= req.max_new_tokens
@@ -490,6 +722,10 @@ class Engine:
                 # the adapter's slot becomes evictable once its last
                 # live reader retires
                 self.lora.release(req.adapter, req.request_id)
+            if self.spec is not None:
+                # bounded proposer retention: the n-gram index dies with
+                # the request (it rebuilds lazily if the id is reused)
+                self.spec.drop(req.request_id)
             if self._drain_capture is not None:
                 # BEFORE the eviction below: more requests than
                 # keep_finished may retire in one step
@@ -500,14 +736,61 @@ class Engine:
                 self._states.pop(self._finished_order.popleft(), None)
         else:
             st.pending_token = token
-        events.append(TokenEvent(req.request_id, token, None, st.finished,
+        events.append(TokenEvent(req.request_id, token, text, st.finished,
                                  st.finish_reason))
+        if req.on_token is not None:
+            try:
+                req.on_token(req.request_id, token, text)
+            except Exception:  # noqa: BLE001
+                # a raising callback must not tear down the whole step:
+                # the batch's other requests already produced events
+                warnings.warn(
+                    f"on_token callback for request {req.request_id!r} "
+                    f"raised; continuing "
+                    f"({traceback.format_exc(limit=3).strip()})",
+                    RuntimeWarning, stacklevel=2)
+
+    def _propose_drafts(self) -> None:
+        """Attach this step's n-gram draft to every eligible decode slot
+        (``serving/spec.py``).  Drafting is best-effort: a failed
+        proposal -- an injected ``serve.spec`` fault included -- drops
+        THAT slot to ``draft_len = 0`` (a plain decode through the same
+        step) and counts in ``spec_stats()["errors"]``.  The cap keeps
+        speculative KV inside the pages the request reserved at admission
+        and accepted tokens inside its output budget, so rollback is
+        ``kv_len`` bookkeeping only."""
+        fi = _rs_state.FAULTS[0]
+        for _i, st in self.scheduler.active():
+            st.draft = []
+            if st.prefilling or st.request.temperature > 0.0:
+                continue             # greedy slots only
+            cap = min(self.draft_depth,
+                      st.total_len - (st.kv_len + 1),
+                      st.request.max_new_tokens - len(st.output_ids) - 1)
+            if cap < 1:
+                continue
+            try:
+                if fi is not None:
+                    fi("serve.spec")
+                st.draft = self.spec.propose(st, cap)
+            except Exception:  # noqa: BLE001 -- degrade, never isolate
+                self.spec.errors += 1
+                st.draft = []
 
     def step(self) -> List[TokenEvent]:
-        """Admit what fits, run ONE unified ragged step (prefill chunks +
-        decode tokens together), retire what finished.  Returns the
-        tokens emitted (one per decoded / prompt-completed request)."""
+        """Admit what fits, run ONE unified ragged step (prefill chunks,
+        decode tokens and verify spans together), retire what finished.
+        Returns the tokens emitted (one per decoded / prompt-completed
+        request, more for an accepted speculative span).
+
+        A host-side failure in one request's bookkeeping (admission, CoW,
+        prefill/decode post-processing, or an injected ``serve.*`` fault)
+        never tears down the step or the other slots: the victim is
+        rewound to its pre-span snapshot, preempted to host memory and
+        re-admitted; everyone else's events are delivered normally."""
         self._admit_all()
+        if self.spec is not None:
+            self._propose_drafts()
         plan = self.scheduler.plan_spans(self.prefill_chunk,
                                          self.prefill_token_budget)
         events: List[TokenEvent] = []
@@ -515,9 +798,13 @@ class Engine:
             return events
         if not self._graph.ready:
             self.warmup()            # the one capture, as the reference's
-        self._run_cow(plan)
+        plan = self._run_cow(plan)
+        if not plan:
+            return events
+        spec = self.spec is not None
         (tokens, tables, starts, lens, temps, seeds, emit,
-         adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk)
+         adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk,
+                                                spec_emit=spec)
         self._graph.load({"tokens": tokens, "tables": tables,
                           "starts": starts, "lens": lens,
                           "adapters": adapters})
@@ -525,26 +812,127 @@ class Engine:
         logits = self._graph.run()
         after = _kernels.counts(self.device.type)
         self._last_launches = {k: after[k] - before[k] for k in after}
-        nxt = _sample(logits, temps, self._key, seeds, emit).cpu().numpy()
+        if spec:
+            # a temperature slot draws only where the host consumes: its
+            # decode positions, or a completing prefill's last position
+            draws = {i: [n - 1] if is_prefill else range(n)
+                     for i, st, n, is_prefill in plan
+                     if temps[i] > 0.0 and not (
+                         is_prefill and st.kv_len + n
+                         < st.request.prompt_ids.size)}
+            nxt = _sample_span(logits, temps, self._key, seeds, emit, draws)
+        else:
+            nxt = _sample(logits, temps, self._key, seeds,
+                          emit).cpu().numpy()
         margins = None
         if self.margins is not None:
             top2 = torch.topk(logits.float(), 2, dim=-1).values
-            margins = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
         self.steps += 1
-        for i, st, n, is_prefill in plan:
-            m = None if margins is None else float(margins[i])
-            if not is_prefill:
-                st.kv_len += 1
-                self._emit(st, int(nxt[i]), m, events)
-                continue
-            st.kv_len += n
-            if st.prefilling:
-                continue             # mid-prefill: sample discarded
-            # prompt complete: this sample is the request's first token
-            self._register_prefix(st)
-            self._emit(st, int(nxt[i]), m, events)
+        self._finish_events(plan, nxt, margins, events)
         self.tokens_emitted += len(events)
         return events
+
+    def _finish_events(self, plan, nxt, margins,
+                       events: List[TokenEvent]) -> None:
+        fi = _rs_state.FAULTS[0]
+        for i, st, n, is_prefill in plan:
+            rid = st.request.request_id
+            # pre-span snapshot: isolation rewinds to here, and re-running
+            # the span after restore is idempotent (the step already wrote
+            # this span's KV; the re-run rewrites identical bytes, and
+            # kv_len only ever covered the accepted prefix)
+            snap = (st.kv_len, st.pending_token, len(st.output_ids),
+                    st.text_len, st.detok_offset, st.spec_proposed,
+                    st.spec_accepted,
+                    len(self.margins.get(rid, ())) if self.margins is not None
+                    else 0)
+            try:
+                if fi is not None:
+                    fi("serve.prefill" if is_prefill else "serve.step")
+                if not is_prefill:
+                    # decode: a single token, or the speculative verify
+                    # span (mid-verify faults land in the rollback below)
+                    self._consume_decode(st, i, n, nxt, margins, events)
+                    continue
+                st.kv_len += n
+                if st.prefilling:
+                    continue         # mid-prefill: sample discarded
+                # prompt complete: this sample is the request's first
+                # token; a speculative step samples every span position,
+                # and the prompt's last position carries it
+                pos = (i,) if nxt.ndim == 1 else (i, n - 1)
+                self._register_prefix(st)
+                self._emit(st, int(nxt[pos]),
+                           None if margins is None else float(margins[pos]),
+                           events)
+            except Exception as e:  # noqa: BLE001 -- isolate the request
+                st.kv_len, st.pending_token = snap[0], snap[1]
+                del st.output_ids[snap[2]:]
+                st.text_len, st.detok_offset = snap[3], snap[4]
+                st.spec_proposed, st.spec_accepted = snap[5], snap[6]
+                if self.margins is not None and rid in self.margins:
+                    del self.margins[rid][snap[7]:]
+                # a speculative span may have emitted part of its
+                # acceptance before failing: those tokens were rewound and
+                # re-emit after restore, so their events must not ALSO be
+                # delivered from this step
+                events[:] = [ev for ev in events if ev.request_id != rid]
+                self._isolate(st, e)
+
+    def _consume_decode(self, st: RequestState, i: int, n: int, nxt,
+                        margins, events: List[TokenEvent]) -> None:
+        """Consume a decode slot's sample(s): a plain single-token decode
+        (the engine without ``spec_decode``, or a slot with no draft), or
+        the speculative VERIFY -- greedy acceptance takes the longest
+        draft prefix the per-position samples reproduce, plus one bonus
+        token (a total miss still emits one token).  Rolling back the
+        rejected tail is ``kv_len`` bookkeeping ONLY: the speculative
+        writes sit in pages the request reserved, beyond the new kv_len,
+        where the next span overwrites them and attention never reads."""
+        if nxt.ndim == 1:
+            st.kv_len += 1
+            self._emit(st, int(nxt[i]),
+                       None if margins is None else float(margins[i]),
+                       events)
+            return
+        row = nxt[i]
+        req = st.request
+        k = n - 1
+        a = 0
+        while a < k and int(row[a]) == st.draft[a]:
+            a += 1
+        # eos-aware emission length, decided BEFORE emitting: an accepted
+        # token that IS the eos finishes the request there and the rest of
+        # the accepted span is dropped (the draft cap already keeps a + 1
+        # inside the max_new budget)
+        will = a + 1
+        if req.eos_token_id is not None:
+            for j in range(will):
+                if int(row[j]) == req.eos_token_id:
+                    will = j + 1
+                    break
+        acc = will - 1                  # drafts actually consumed
+        st.kv_len += 1 + acc
+        if k:
+            # per-request accounting lands BEFORE emission (the last token
+            # may retire the request); it is part of the rollback snapshot
+            st.spec_proposed += k
+            st.spec_accepted += acc
+        for j in range(will):
+            self._emit(st, int(row[j]),
+                       None if margins is None else float(margins[i, j]),
+                       events)
+            if st.finished:
+                break                   # safety net: must match `will`
+        if k:
+            # engine-wide counters land AFTER emission: they are not in
+            # the snapshot, so counting before an _emit that raises would
+            # count this span twice when isolation re-runs it
+            sp = self.spec
+            sp.verifies += 1
+            sp.proposed += k
+            sp.accepted += acc
 
     def stream(self):
         """Generator: run ``step()`` until drained, yielding each

@@ -122,10 +122,10 @@ def _engines_agree(jm, tm, geom, drive):
     teng.warmup()
     tout, _ = drive(teng)
     assert sorted(tout) == sorted(jout) == sorted(prompts)
-    verdicts = {rid: _near_tie_equal(jout[rid], tout[rid],
-                                     _jax_margins(jm, prompts[rid],
-                                                  jout[rid]))
-                for rid in jout}
+    verdicts = {rid: _near_tie_equal(
+        jout[rid], tout[rid],
+        lambda rid=rid: _jax_margins(jm, prompts[rid], jout[rid]))
+        for rid in jout}
     exempt = [r for r, v in verdicts.items() if v == "exempt"]
     assert len(exempt) <= 1, f"exempted requests: {exempt}"
     assert teng.kv_blocks_used == 0 and jeng.kv_blocks_used == 0

@@ -257,9 +257,11 @@ def test_mega_engine_matches_jax_mega_engine(arrays, port_engines):
     assert sorted(tout) == sorted(jout) == sorted(prompts)
     exempt = []
     for rid, ref in jout.items():
-        m = _margins(jm, prompts[rid], ref)
         for i, (r, g) in enumerate(zip(ref, tout[rid])):
             if r != g:
+                # a JAX forward per prompt length costs a compile: the
+                # margins are computed only where the streams differ
+                m = _margins(jm, prompts[rid], ref)
                 assert m[i] < TIE, (rid, i, r, g, m[i])
                 exempt.append(rid)
                 break
