@@ -95,6 +95,15 @@ Phases, each of which fails the run on its own (nothing is caught):
    pages swapped out and in with ms and GB/s per swap (CUDA events),
    the borrowed pages' refcounts before and after, the pools'
    addresses unchanged, one capture, prefix hits afterwards;
+   kv8_engine: the engine phase's model, geometry and traffic behind
+   Engine(kv_cache_dtype="int8") (int8 pools with f32 scales per
+   position and head, attended through the reference's gather+dequant
+   composition inside the captured step): per step 32 QKV and 32
+   SwiGLU launches and no ragged-attention or megakernel launch, one
+   capture, streams equal to an eager twin's under the near-tie rule,
+   pools drained, prefix hits and copy-on-write, hbm_stats'
+   kv_pool_bytes (D + 4) / (2 D) = 0.515625 of the bf16 engine's; step,
+   replay and host ms and tokens/s beside the bf16 engine's;
    then the engine phase's model, engine and traffic with Engine(weight_quant=
    "int8") and again "int4": the quantized kernel launched 225 times per
    step (7 projections x 32 layers + the LM head), ragged attention 32,
@@ -119,8 +128,11 @@ Phases, each of which fails the run on its own (nothing is caught):
    tables from its allocator padded with the sentinel; the 8 prompts in
    one prefill call through the flash forward kernel, then 32 greedy
    decode calls of 32 paged-attention launches each; how many leading
-   tokens equal the gpt_engine streams is reported, not gated), and 8
-   more decode calls under torch.profiler;
+   tokens equal the gpt_engine streams is reported, not gated, and at
+   each request's first differing token the paged path's top-2 margin
+   of its f32 logits and the engine's (its eager twin's), classed
+   against the bf16 tolerance at that logit: "near_tie" or "fault",
+   not gated), and 8 more decode calls under torch.profiler;
    generate: llama2-7b bf16 fused, 32 layers, model.generate() over 8
    prompts of 128 tokens, 64 new tokens, greedy: the prefill in one
    eager forward, then the one-token decode step captured once into a
@@ -132,6 +144,13 @@ Phases, each of which fails the run on its own (nothing is caught):
    by CUDA events, decode tokens/s, greedy streams equal between the
    two; a second call of the same shape with 32 tokens and top-k/top-p
    sampling, reproducible from seed(), leaves captures at 1;
+   kv8_generate: the same model and prompts with
+   generate(kv_cache_dtype="int8"): a new decode graph over the int8
+   dense 4-tuple caches, captured once (replays 63), per step 32 QKV and
+   32 SwiGLU launches and no paged-attention launch (the dense int8
+   composition), prefill ms, decode ms per step captured and eager in
+   turns, replay device ms, decode tokens/s beside the bf16 call's,
+   captured and eager streams equal;
 4. cross-check: a 2-layer model at full llama2-7b width in f32, the same
    weights on both sides, kernels on the card against the plain versions
    on the CPU: greedy streams must be equal under the near-tie rule; the
@@ -147,7 +166,13 @@ Phases, each of which fails the run on its own (nothing is caught):
    card against the same engine on the CPU, with one preemption and one
    injected serve.step fault (isolation) on both sides: greedy streams
    equal with 0 exempt, equal draft and acceptance counts, verify spans
-   run, one capture;
+   run, one capture; kv8_cross_check: llama-350m-hd128 cut to 2 layers,
+   f32, int8 KV pools, card against CPU on three engines (int8 KV; with
+   weight_quant="int8", codes bit-equal; with spec_decode=True and one
+   preemption): streams equal under the near-tie rule, prefix stats
+   equal, one capture and no ragged-attention launch each; and the bucket
+   path over int8 PagedKVCache pools (prefill + 4 decode calls, the card
+   fed the CPU's tokens: greedy tokens equal under the near-tie rule);
 5. train: llama2-7b width cut to 4 layers, amp O2 (bf16 parameters, f32
    master weights), AdamW + ClipGradByGlobalNorm through TrainStep, batch
    2 x 2048, 5 steps on one fixed batch, PyTorch's default precision:
@@ -165,10 +190,11 @@ Phases, each of which fails the run on its own (nothing is caught):
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
 quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, spec_engine,
-preempt, generate, quant_engine, gpt_engine, gpt_paged, cross_check,
-quant_cross_check, gpt_cross_check, generate_cross_check,
-spec_cross_check, train, train_cross_check; smoke: the run's wall
-seconds from the build's start), the card's name and power limit, a
+preempt, kv8_engine, generate, kv8_generate, quant_engine, gpt_engine,
+gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
+generate_cross_check, spec_cross_check, kv8_cross_check, train,
+train_cross_check; smoke: the run's wall seconds from the build's start
+and each phase's), the card's name and power limit, a
 {"kernels": [...]} line, and last the {"ok": true, "device": {...}}
 line.  The QKV, SwiGLU, int8, int4, megakernel, BGMV and ragged attention
 rows carry `device_ms`, the card's time per call with the host out of
@@ -231,6 +257,7 @@ from paddle_tpu_torch.nn import functional as NF
 from paddle_tpu_torch.resilience import clear_faults, install_faults
 from paddle_tpu_torch.serving import (Engine, LoRAPool, PagedKVCache,
                                       random_adapter)
+from paddle_tpu_torch.serving.graph import launch_delta
 
 # H100 SXM, NVIDIA's data sheet (dense): memory rate and peak by type
 HBM_BYTES_S = 3.35e12
@@ -1626,15 +1653,17 @@ def eager_twin(model, serve_fn, **kw):
 
 
 def graph_phase(res, eng, eager, steps, replays, out, eager_out,
-                adapters=(None,)):
+                adapters=(None,), eager_profile=True):
     """``res`` gains the captured-against-eager block (graph_vs_eager) and
-    both engines' profiles over one fresh batch each."""
+    the captured engine's profile over one fresh batch, and with
+    ``eager_profile`` the eager twin's too."""
     res["graph"] = graph_vs_eager(eng, eager, steps, replays, out,
                                   eager_out, adapters=adapters)
     res["profile"] = profile_steps(eng, np.random.default_rng(3),
                                    adapters=adapters)
-    res["graph"]["eager_profile"] = profile_steps(
-        eager, np.random.default_rng(3), adapters=adapters)
+    if eager_profile:
+        res["graph"]["eager_profile"] = profile_steps(
+            eager, np.random.default_rng(3), adapters=adapters)
     assert eng.captures == 1, eng.captures
 
 
@@ -1675,6 +1704,7 @@ def engine_phase():
     t0 = time.perf_counter()
     model = llama("llama2-7b", dtype="bfloat16", seed=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16).warmup()
     setup_s = time.perf_counter() - t0
     assert (eng.captures, eng.replays) == (1, 0)
@@ -1685,6 +1715,7 @@ def engine_phase():
     reqs, out = serve(eng, rng, 5, 17, 300, 16, 32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
+    hbm = eng.hbm_stats()
     launches = {k: v for k, v in kernel_launches().items() if k in SERVING}
     steps, replays = eng.steps - steps0, eng.replays - replays0
     layers = model.cfg.num_hidden_layers
@@ -1700,15 +1731,101 @@ def engine_phase():
            "tokens": eng.tokens_emitted,
            "tok_s": eng.tokens_emitted / wall,
            "step_ms": wall / steps * 1e3, "prefix": stats,
-           "launches": launches, "layers": layers,
+           "launches": launches, "layers": layers, "hbm": hbm,
            "prompt_tokens": int(sum(len(p) for p, _ in reqs.values()))}
     eager, (_, eager_out) = eager_twin(model, lambda e: serve(
         e, np.random.default_rng(1), 5, 17, 300, 16, 32))
     graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("engine " + json.dumps(res))
+    res["streams"] = out
     del eng, eager
     torch.cuda.empty_cache()
     return res, model
+
+
+# -- int8 KV pools and caches ---------------------------------------------------
+
+def leading_equal(ref, got):
+    """How many leading tokens of ``got`` equal ``ref``'s."""
+    n = 0
+    while n < min(len(ref), len(got)) and int(got[n]) == int(ref[n]):
+        n += 1
+    return n
+
+
+def kv8_engine_phase(model, bf16):
+    """The engine phase's model, engine geometry and traffic behind
+    Engine(kv_cache_dtype="int8"): int8 pools with f32 scales per
+    (position, head), written quantized and attended through the
+    reference's gather+dequant composition inside the captured step.
+    Per step 32 QKV and 32 SwiGLU launches, no ragged-attention or
+    megakernel launch; one capture; streams equal to an eager twin's
+    under the near-tie rule; pools drained, prefix hits and CoW;
+    hbm_stats' kv_pool_bytes (D + 4) / (2 D) of the bf16 engine's
+    (``bf16``: the engine phase's result); step, replay and host ms and
+    tokens/s beside the bf16 engine's, and how many leading tokens of
+    each stream equal the bf16 engine's (reported, not gated)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
+                 kv_cache_dtype="int8").warmup()
+    setup_s = time.perf_counter() - t0
+    assert (eng.captures, eng.replays) == (1, 0)
+    assert eng.kv.quantized and len(eng.kv.caches[0]) == 4
+    reset_launches()
+    steps0, replays0 = eng.steps, eng.replays
+    t1 = time.perf_counter()
+    reqs, out = serve(eng, np.random.default_rng(1), 5, 17, 300, 16, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    hbm = eng.hbm_stats()
+    launches = kernel_launches()
+    steps, replays = eng.steps - steps0, eng.replays - replays0
+    layers = model.cfg.num_hidden_layers
+    stats = eng.prefix_stats()
+    assert len(reqs) == 8 and sorted(out) == sorted(reqs), sorted(out)
+    for rid, (_, n) in reqs.items():
+        assert len(out[rid]) == n, (rid, len(out[rid]), n)
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert stats["hits"] > 0 and stats["cow_copies"] > 0, stats
+    per_step = {"fused_rms_rope_qkv": layers, "fused_swiglu_mlp": layers,
+                "ragged_paged_attention": 0, "mega_decode": 0,
+                "paged_attention": 0}
+    got = {k: eng.launches_per_step()[k] for k in per_step}
+    assert got == per_step, (got, per_step)
+    totals = {k: launches[k] for k in per_step}
+    assert totals == {k: v * steps for k, v in per_step.items()}, totals
+    d = model.cfg.head_dim
+    bf16_kv = bf16["hbm"]["kv_pool_bytes"]
+    assert hbm["kv_pool_bytes"] * 2 * d == bf16_kv * (d + 4), \
+        (hbm["kv_pool_bytes"], bf16_kv)
+    res = {"kv_cache_dtype": "int8", "setup_s": setup_s, "steps": steps,
+           "wall_s": wall, "tokens": eng.tokens_emitted,
+           "tok_s": eng.tokens_emitted / wall,
+           "step_ms": wall / steps * 1e3, "prefix": stats,
+           "launches_per_step": got, "launches": totals, "layers": layers,
+           "hbm": hbm, "bf16_hbm": bf16["hbm"],
+           "kv_pool_bytes_vs_bf16": hbm["kv_pool_bytes"] / bf16_kv,
+           "leading_equal_vs_bf16": {
+               rid: [leading_equal(bf16["streams"][rid], out[rid]),
+                     len(out[rid])] for rid in sorted(out)}}
+    eager, (_, eager_out) = eager_twin(model, lambda e: serve(
+        e, np.random.default_rng(1), 5, 17, 300, 16, 32),
+        kv_cache_dtype="int8")
+    # the eager twin's profile is left out: its steps cost ~0.1 s each
+    graph_phase(res, eng, eager, steps, replays, out, eager_out,
+                eager_profile=False)
+    g, gb = res["graph"], bf16["graph"]
+    res["vs_bf16"] = {
+        key: {"int8": g[key], "bf16": gb[key]}
+        for key in ("captured_step_ms", "eager_step_ms", "replay_device_ms",
+                    "host_ms_outside_replay")}
+    res["vs_bf16"]["tok_s"] = {"int8": res["tok_s"], "bf16": bf16["tok_s"]}
+    res["phase_s"] = time.perf_counter() - t0
+    log("kv8_engine " + json.dumps(res))
+    del eng, eager
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- speculative decoding and preemption ---------------------------------------
@@ -2018,6 +2135,137 @@ def spec_cross_check_phase():
     del gpu, cpu
     torch.cuda.empty_cache()
     return res
+
+
+def kv8_cross_check_phase():
+    """llama-350m-hd128 cut to 2 layers, f32, the same weights on both
+    sides, int8 KV pools, the card (captured) against the CPU (the plain
+    versions) on three engines: ``kv_cache_dtype="int8"``; that with
+    ``weight_quant="int8"`` (codes and scales bit-equal card vs CPU); that
+    with ``spec_decode=True`` and one preemption (the swap carries values
+    and scales).  Greedy streams equal under the near-tie rule (CPU
+    margins, at most one request exempt), prefix accounting equal, on
+    the card one capture each and no ragged-attention or megakernel
+    launch."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(46)
+    spec_prompts = [np.tile(rng.integers(0, 32000, size=int(n)), 3)
+                    for n in rng.integers(8, 30, size=5)]
+    forms = (("int8_kv", {}), ("int8_kv_weight_int8", {"weight_quant": "int8"}),
+             ("int8_kv_spec_preempt", {"spec_decode": True,
+                                       "draft_depth": SPEC_DEPTH}))
+    res = {}
+    for form, kw in forms:
+        gpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                    seed=1)
+        cpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                    device="cpu", seed=1)
+        cpu.load_state_dict(gpu.state_dict())
+        outs = {}
+        for tag, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, None)):
+            eng = Engine(model, max_batch=4, max_seq_len=256, page_size=16,
+                         device=dev, kv_cache_dtype="int8", **kw).warmup()
+            eng.margins = {}
+            before = kernel_launches()
+            if "spec_decode" in kw:
+                rids = [eng.add_request(p, max_new_tokens=24,
+                                        request_id=f"x{i}")
+                        for i, p in enumerate(spec_prompts)]
+                for _ in range(5):
+                    eng.step()
+                victim = min(eng.scheduler.active(),
+                             key=lambda t: t[1].prefilling)[1]
+                assert eng.preempt(victim.request.request_id)
+                eng.run()
+                out = {r: eng.output_ids(r) for r in rids}
+                assert eng._swap.pages_in > 0 and sum(
+                    eng._states[r].preempts for r in rids) == 1
+            else:
+                _, out = serve(eng, np.random.default_rng(2), 3, 17, 90, 6,
+                               10)
+            delta = launch_delta(before, kernel_launches())
+            assert eng.kv_blocks_used == 0
+            outs[tag] = (out, eng.margins, eng.prefix_stats(), eng.captures,
+                         delta, eng.spec_stats())
+        if "weight_quant" in kw:
+            cbuf, gbuf = dict(cpu.named_buffers()), dict(gpu.named_buffers())
+            assert sorted(cbuf) == sorted(gbuf) and gbuf
+            for bname, t in gbuf.items():
+                assert torch.equal(t.cpu(), cbuf[bname]), bname
+        (ref, margins, rstats, _, _, rspec), \
+            (got, _, gstats, caps, delta, gspec) = outs["cpu"], outs["gpu"]
+        assert sorted(got) == sorted(ref)
+        verdicts = {rid: near_tie_equal(ref[rid], got[rid], margins[rid])
+                    for rid in ref}
+        exempt = sorted(r for r, v in verdicts.items() if v == "exempt")
+        assert len(exempt) <= 1, exempt
+        assert rstats == gstats, (rstats, gstats)
+        assert caps == 1, caps
+        assert delta["ragged_paged_attention"] == 0 and \
+            delta["mega_decode"] == 0, delta
+        main = "int8_matmul" if "weight_quant" in kw else "fused_rms_rope_qkv"
+        assert delta[main] > 0, delta
+        if "spec_decode" in kw:
+            assert gspec["verifies"] > 0, gspec
+            if not exempt:
+                for key in ("proposed", "accepted", "verifies"):
+                    assert gspec[key] == rspec[key], (key, gspec, rspec)
+        res[form] = {"requests": len(ref),
+                     "equal": sum(v == "equal" for v in verdicts.values()),
+                     "exempt": exempt,
+                     "min_margin": min(min(m) for m in margins.values()),
+                     "captures": caps,
+                     "launches": {k: v for k, v in delta.items() if v}}
+        del gpu, cpu, outs
+        torch.cuda.empty_cache()
+    res["bucket_int8"] = kv8_bucket_cross_check()
+    res["wall_s"] = time.perf_counter() - t0
+    log("kv8_cross_check " + json.dumps(res))
+    return res
+
+
+def kv8_bucket_cross_check(steps=4):
+    """The bucket prefill/decode path over int8 ``PagedKVCache`` pools,
+    llama-350m-hd128 cut to 2 layers, f32, card against CPU: 4 prompts in
+    one prefill call (the flash forward kernel) and ``steps`` decode calls
+    (the paged composition: no paged-attention launch), the card fed the
+    CPU's greedy tokens; each call's greedy token on the card equal to
+    the CPU's under the near-tie rule (CPU margins), logits finite, their
+    largest difference reported (an int8 code one unit apart where the
+    card's and the CPU's K round a tie differently moves a logit by more
+    than the f32 tolerance)."""
+    gpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                seed=1)
+    cpu = llama("llama-350m-hd128", num_hidden_layers=2, dtype="float32",
+                device="cpu", seed=1)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 32000, size=int(n)) for n in (17, 40, 64, 90)]
+    ref = paged_generate(cpu, prompts, steps, "cpu", kv_dtype="int8")
+    got = paged_generate(gpu, prompts, steps, "cuda", forced=ref["tokens"],
+                         kv_dtype="int8")
+    layers = gpu.cfg.num_hidden_layers
+    pre, dec = got["launches"]
+    assert pre["flash_attention_fwd"] == layers, pre
+    assert dec["paged_attention"] == 0 and \
+        dec["fused_rms_rope_qkv"] == layers * steps, dec
+    exempt, err = [], 0.0
+    for i, (g, r) in enumerate(zip(got["logits"], ref["logits"])):
+        assert bool(torch.isfinite(g).all()), f"call {i}: non-finite"
+        err = max(err, float((g - r).abs().max()))
+        top = r.topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).numpy()
+        for row in np.nonzero(g.argmax(-1).numpy()
+                              != r.argmax(-1).numpy())[0]:
+            assert margin[row] < TIE, (i, int(row), float(margin[row]))
+            exempt.append([i, int(row)])
+    assert len(exempt) <= 1, exempt
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"calls": steps + 1, "rows": len(prompts), "exempt": exempt,
+            "max_abs_logit_diff": err,
+            "launches_decode": {k: v for k, v in dec.items() if v}}
 
 
 def tensor_bytes(tensors) -> int:
@@ -2654,7 +2902,7 @@ def gpt_kernel_rows(gen, rng):
 
 
 def paged_generate(model, prompts, steps, device, forced=None, page=16,
-                   profile_calls=0):
+                   profile_calls=0, kv_dtype=None):
     """The bucket-prefill/decode path through ``model`` with pools from a
     ``PagedKVCache`` and tables from its allocator, padded with the
     out-of-range sentinel: one prefill call over all prompts (bucket of
@@ -2666,7 +2914,8 @@ def paged_generate(model, prompts, steps, device, forced=None, page=16,
     each part.  With ``profile_calls``, that many further greedy decode
     calls run after the counted ones under torch.profiler ("profile":
     device busy and idle, the largest kernels, the MLP kernels' ms per
-    call)."""
+    call).  ``kv_dtype``: the pools' dtype (default the model's;
+    ``"int8"``: the quantized pools)."""
     cfg = model.cfg
     kvh = getattr(cfg, "num_key_value_heads", None) or \
         cfg.num_attention_heads
@@ -2675,8 +2924,9 @@ def paged_generate(model, prompts, steps, device, forced=None, page=16,
     s = -(-int(plens.max()) // 16) * 16
     mb = -(-(int(plens.max()) + steps + profile_calls) // page)
     kv = PagedKVCache(cfg.num_hidden_layers, b * mb, page, kvh,
-                      cfg.head_dim, dtype=next(model.parameters()).dtype,
-                      device=device)
+                      cfg.head_dim, device=device,
+                      dtype=kv_dtype if kv_dtype is not None
+                      else next(model.parameters()).dtype)
     tables = np.full((b, mb), kv.oob_block, np.int32)
     for i, n in enumerate(plens):
         need = -(-(int(n) + steps + profile_calls) // page)
@@ -2786,18 +3036,39 @@ def gpt_engine_phase():
         e, np.random.default_rng(1), 5, 17, 300, 16, 32))
     graph_phase(res, eng, eager, steps, replays, out, eager_out)
     log("gpt_engine " + json.dumps(res))
+    margins = {rid: eager.margins[rid] for rid in reqs}
     del eng, eager
     torch.cuda.empty_cache()
-    return res, model, reqs, out
+    return res, model, reqs, out, margins
 
 
-def gpt_paged_phase(model, reqs, streams, steps=32, profile_calls=8):
+def parting(paged_logits, engine_margins, n, dtype=torch.bfloat16):
+    """Where a paged stream first parts from the engine's, at token ``n``:
+    the paged path's top-2 margin of its f32 logits there, the engine's
+    (eager twin's) margin at the same token, the tolerance of ``dtype``
+    at the top logit's magnitude (atol + rtol * |logit|), and the
+    verdict: "near_tie" when the paged margin is under it, "fault" when
+    not."""
+    top = paged_logits.float().topk(2).values
+    margin = float(top[0] - top[1])
+    atol, rtol = TOL[dtype]
+    tol = atol + rtol * abs(float(top[0]))
+    return {"step": n, "paged_margin": margin,
+            "engine_margin": (float(engine_margins[n])
+                              if n < len(engine_margins) else None),
+            "tol": tol, "verdict": "near_tie" if margin < tol else "fault"}
+
+
+def gpt_paged_phase(model, reqs, streams, margins, steps=32,
+                    profile_calls=8):
     """The gpt_engine model on the bucket-prefill/decode path: the 8
     prompts of gpt_engine in one prefill call (the flash forward kernel,
     32 launches), then ``steps`` greedy decode calls (32 paged-attention
     launches each), then ``profile_calls`` more under torch.profiler.
     How many leading tokens of each request equal its gpt_engine stream
-    is reported, not gated (bf16)."""
+    is reported, not gated (bf16), and at each first difference the
+    paged path's and the engine's top-2 margins against the bf16
+    tolerance (``parting``; ``margins``: the gpt_engine eager twin's)."""
     rids = sorted(reqs)
     layers = model.cfg.num_hidden_layers
     run = paged_generate(model, [reqs[r][0] for r in rids], steps, "cuda",
@@ -2812,13 +3083,13 @@ def gpt_paged_phase(model, reqs, streams, steps=32, profile_calls=8):
     assert {k: dec[k] for k in want_dec} == want_dec, dec
     for lg in run["logits"]:
         assert bool(torch.isfinite(lg).all()), "non-finite logits"
-    agree = {}
+    agree, partings = {}, {}
     for i, rid in enumerate(rids):
         ref, got = streams[rid], run["tokens"][i]
-        n = 0
-        while n < min(len(ref), len(got)) and int(got[n]) == ref[n]:
-            n += 1
+        n = leading_equal(ref, got)
         agree[rid] = [n, len(ref)]
+        if n < min(len(ref), len(got)):
+            partings[rid] = parting(run["logits"][n][i], margins[rid], n)
     b = len(rids)
     res = {"model": "gpt3-6.7b", "batch": b, "bucket": run["bucket"],
            "prompt_lens": run["plens"], "decode_steps": steps,
@@ -2828,6 +3099,7 @@ def gpt_paged_phase(model, reqs, streams, steps=32, profile_calls=8):
            "launches_prefill": {k: pre[k] for k in want_pre},
            "launches_decode": {k: dec[k] for k in want_dec},
            "leading_equal_vs_engine": agree,
+           "partings": partings,
            "decode_profile": run["profile"]}
     log("gpt_paged " + json.dumps(res))
     return res
@@ -3033,7 +3305,98 @@ def generate_phase():
                        "differs_from_greedy": not torch.equal(
                            s1, out[:, :p + new // 2])}}
     log("generate " + json.dumps(res))
-    del holder, model
+    res["streams"] = out
+    del holder
+    return res, model, ids
+
+
+def kv8_generate_phase(model, ids, bf16):
+    """The generate phase's model and prompts with
+    ``generate(kv_cache_dtype="int8")``: the int8 dense 4-tuple caches in
+    a new decode graph (key (batch, capacity, int8)), captured once and
+    replayed (captures 1, replays 63); per step 32 QKV and 32 SwiGLU
+    launches and no paged-attention launch (the dense int8 composition
+    attends the caches, K dequantized in bf16 and V in f32); prefill ms,
+    decode ms per step captured and eager in turns, the replays' device
+    ms, decode tokens/s beside the bf16 call's (``bf16``: the generate
+    phase's result); captured and eager greedy streams equal; how many
+    leading tokens of each row equal the bf16 stream (reported)."""
+    t0 = time.perf_counter()
+    b, p, new, cap = (GENERATE[k] for k in ("batch", "prompt", "new",
+                                            "capacity"))
+    layers = model.cfg.num_hidden_layers
+    kw = dict(max_new_tokens=new, kv_cache_dtype="int8")
+    reset_launches()
+    first_ms, out = timed_generate(model, ids, **kw)
+    launches = kernel_launches()
+    holder = model.decode_graph
+    assert holder.key == (b, cap, torch.int8), holder.key
+    assert all(len(c) == 4 and c[0].dtype == torch.int8
+               for c in holder.caches)
+    assert (holder.captures, holder.replays) == (1, new - 1), \
+        (holder.captures, holder.replays)
+    names = ("fused_rms_rope_qkv", "fused_swiglu_mlp", "paged_attention",
+             "flash_attention_fwd", "ragged_paged_attention", "mega_decode")
+    per_step = {k: holder.graph.launches[k] for k in names}
+    assert per_step == {**dict.fromkeys(names[:2], layers),
+                        **dict.fromkeys(names[2:], 0)}, per_step
+    want = {"fused_rms_rope_qkv": layers * (new + 1),
+            "fused_swiglu_mlp": layers * (new + 1), "paged_attention": 0,
+            "flash_attention_fwd": layers, "ragged_paged_attention": 0,
+            "mega_decode": 0}
+    totals = {k: launches[k] for k in names}
+    assert totals == want, (totals, want)
+    assert out.shape == (b, p + new) and torch.equal(out[:, :p], ids)
+    assert int(out.min()) >= 0 and int(out.max()) < 32000
+    prefill_ms = statistics.median(
+        timed_generate(model, ids, max_new_tokens=1, max_len=cap,
+                       kv_cache_dtype="int8")[0] for _ in range(3))
+    turns, streams = [], {}
+    for tag in ("captured", "eager", "eager", "captured"):
+        events = [] if tag == "captured" else None
+        ms, got = timed_generate(model, ids, events,
+                                 _eager_step=tag == "eager", **kw)
+        row = {"mode": tag, "call_ms": ms,
+               "step_ms": (ms - prefill_ms) / (new - 1)}
+        if events:
+            row["replay_device_ms"] = replay_ms(events) / len(events)
+        turns.append(row)
+        streams.setdefault(tag, got)
+        assert torch.equal(got, streams[tag]), f"{tag} streams moved"
+    assert torch.equal(streams["captured"], streams["eager"]), \
+        "captured and eager int8 greedy streams differ"
+    assert torch.equal(streams["captured"], out)
+    assert model.decode_graph is holder and holder.captures == 1
+    mean = lambda tag, key: statistics.mean(r[key] for r in turns
+                                            if r["mode"] == tag)
+    step_ms = mean("captured", "step_ms")
+    ref = bf16["streams"].cpu().numpy()[:, p:]
+    got = out.cpu().numpy()[:, p:]
+    res = {"model": "llama2-7b", "dtype": "bfloat16",
+           "kv_cache_dtype": "int8", "batch": b, "prompt": p,
+           "new_tokens": new, "capacity": cap, "first_call_ms": first_ms,
+           "prefill_ms": prefill_ms, "captured_step_ms": step_ms,
+           "eager_step_ms": mean("eager", "step_ms"),
+           "replay_device_ms": mean("captured", "replay_device_ms"),
+           "host_ms_outside_replay":
+               step_ms - mean("captured", "replay_device_ms"),
+           "decode_tok_s": b / step_ms * 1e3,
+           "captures": holder.captures, "replays": holder.replays,
+           "launches_per_step": per_step, "launches": totals,
+           "turns": turns, "streams_captured_vs_eager": "equal",
+           "cache_bytes": tensor_bytes(t for c in holder.caches for t in c),
+           "bf16_cache_bytes": 2 * layers * b * cap * 2
+               * model.cfg.num_key_value_heads * model.cfg.head_dim,
+           "vs_bf16": {key: {"int8": v, "bf16": bf16[key]} for key, v in (
+               ("captured_step_ms", step_ms),
+               ("replay_device_ms", mean("captured", "replay_device_ms")),
+               ("prefill_ms", prefill_ms),
+               ("decode_tok_s", b / step_ms * 1e3))},
+           "leading_equal_vs_bf16": [[leading_equal(r, g), len(r)]
+                                     for r, g in zip(ref, got)],
+           "phase_s": time.perf_counter() - t0}
+    log("kv8_generate " + json.dumps(res))
+    del holder
     torch.cuda.empty_cache()
     return res
 
@@ -3327,29 +3690,49 @@ def main() -> int:
     took = _build.build()
     log("build " + json.dumps({"wall_s": time.perf_counter() - t0,
                                "per_source_s": took}))
-    kernel_rows = kernel_phase()
-    engine, model = engine_phase()
-    engines = spec_engine_phase(model)
-    preempt_phase(engines)
-    del engines, model
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def run(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    kernel_rows = run("kernels", kernel_phase)
+    engine, model = run("engine", engine_phase)
+    engines = run("spec_engine", spec_engine_phase, model)
+    run("preempt", preempt_phase, engines)
+    del engines
     torch.cuda.empty_cache()
-    generate_phase()
-    quant = {kind: quant_engine_phase(kind) for kind in QUANT}
-    mega = mega_engine_phase()
-    lora = lora_engine_phase()
-    gpt_engine, gpt_model, gpt_reqs, gpt_streams = gpt_engine_phase()
-    gpt_paged = gpt_paged_phase(gpt_model, gpt_reqs, gpt_streams)
+    run("kv8_engine", kv8_engine_phase, model, engine)
+    del model
+    torch.cuda.empty_cache()
+    gen, gen_model, gen_ids = run("generate", generate_phase)
+    run("kv8_generate", kv8_generate_phase, gen_model, gen_ids, gen)
+    del gen_model
+    torch.cuda.empty_cache()
+    quant = {kind: run(f"quant_engine_{kind}", quant_engine_phase, kind)
+             for kind in QUANT}
+    mega = run("mega_engine", mega_engine_phase)
+    lora = run("lora_engine", lora_engine_phase)
+    gpt_engine, gpt_model, gpt_reqs, gpt_streams, gpt_margins = \
+        run("gpt_engine", gpt_engine_phase)
+    gpt_paged = run("gpt_paged", gpt_paged_phase, gpt_model, gpt_reqs,
+                    gpt_streams, gpt_margins)
     del gpt_model
     torch.cuda.empty_cache()
-    cross_check_phase()
-    quant_cross_check_phase()
-    mega_cross_check_phase()
-    lora_cross_check_phase()
-    gpt_cross_check_phase()
-    generate_cross_check_phase()
-    spec_cross_check_phase()
-    train = train_phase()
-    train_cross_check_phase()
+    for name, fn in (("cross_check", cross_check_phase),
+                     ("quant_cross_check", quant_cross_check_phase),
+                     ("mega_cross_check", mega_cross_check_phase),
+                     ("lora_cross_check", lora_cross_check_phase),
+                     ("gpt_cross_check", gpt_cross_check_phase),
+                     ("generate_cross_check", generate_cross_check_phase),
+                     ("spec_cross_check", spec_cross_check_phase),
+                     ("kv8_cross_check", kv8_cross_check_phase)):
+        run(name, fn)
+    train = run("train", train_phase)
+    run("train_cross_check", train_cross_check_phase)
     main_rows = {r["name"]: r for r in kernel_rows
                  if r["geometry"] == "llama2-7b" and r["dtype"] == "bfloat16"
                  and "shape" not in r}
@@ -3375,7 +3758,8 @@ def main() -> int:
          "bound_by": main_rows[name]["bound_by"],
          "library_ms": main_rows[name]["library_ms"]}
         for name, src, rep in KERNELS]}
-    log("smoke " + json.dumps({"wall_s": time.perf_counter() - t0}))
+    log("smoke " + json.dumps({"wall_s": time.perf_counter() - t0,
+                               "phase_s": phase_s}))
     log(f"card: {smi}")
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

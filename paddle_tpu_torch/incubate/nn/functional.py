@@ -20,6 +20,19 @@ composition's twin ``_attend_dense_gqa`` on the CPU.  The one-token write
 is one fixed-shape ``index_copy_`` per cache, so a captured decode step
 never syncs the host.
 
+int8 KV caches.  A cache tuple of four -- ``(k_i8, v_i8, k_scale,
+v_scale)``, f32 scales per (position, head) from :func:`quantize_kv` --
+is the reference's quantized layout, dense or paged; every entry point
+here chooses its branch by the tuple's arity, as the reference does.  The
+reference's attention kernels read fp caches only, so it attends int8
+caches through a gather+dequant composition on every backend, and so does
+the port, on the card too: the paged and ragged steps gather the pages
+and dequantize K and V in f32 (``_paged_gather_dense``), the dense decode
+dequantizes K in bf16 and V in f32 (``masked_multihead_attention``), each
+as the reference does.  The kernel wrappers raise on int8 pools.  The
+quantized writes run the same fixed-shape index code as the fp ones (the
+scales are two more pools), so the captured steps stay sync-free.
+
 ``fused_swiglu_mlp``, ``fused_gelu_mlp`` and ``fused_rms_rope_qkv`` are
 differentiable: each
 is a ``torch.autograd.Function`` whose forward is the kernel (the plain
@@ -67,7 +80,8 @@ __all__ = ["decode_attend_cache", "dense_attend", "fused_gelu_mlp",
            "masked_multihead_attention", "mega_decode_layer",
            "paged_attend", "paged_attention", "paged_copy_blocks",
            "paged_decode_attend", "paged_positions", "paged_prefill_write",
-           "prefill_write_cache", "ragged_paged_attend", "write_paged_kv"]
+           "prefill_write_cache", "quantize_kv", "ragged_paged_attend",
+           "read_cache_prefix", "write_paged_kv"]
 
 _fused_swiglu_mlp_ref = _fm.plain
 _fused_gelu_mlp_ref = _fg.plain
@@ -76,8 +90,6 @@ _lora_bgmv_ref = _lm.plain
 _paged_gather_dense = _ra.paged_gather_dense
 _ragged_attend_dense = _ra.ragged_attend_dense
 _attend_dense_gqa = _pa.attend_dense_gqa
-_INT8_POOLS = "int8 paged pools are not ported yet (ROADMAP.md)"
-_INT8_DENSE = "int8 dense KV caches are not ported yet (ROADMAP.md)"
 
 
 @contextlib.contextmanager
@@ -177,17 +189,41 @@ def fused_rms_rope_qkv(x, norm_weight, w_q, w_k, w_v, cos, sin,
                                   head_dim, eps)
 
 
+def quantize_kv(x):
+    """THE int8 KV quantizer: symmetric, per (..., head) over the last
+    axis.  ``s = max|x| / 127 + 1e-12`` in f32, values ``round(x / s)``
+    (half to even, as ``jnp.round``) as int8.  Returns ``(int8 values,
+    f32 scales)``.  Both divisions are by tensors, never by a Python
+    scalar that a backend may turn into a reciprocal multiply, so the
+    codes and scales are IEEE f32 quotients on the CPU and the card."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, 127.0) + 1e-12
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def _kv_sources(cache, k, v):
+    """What a write puts into each pool of ``cache``: ``(k, v)`` for fp
+    pools, ``(k_i8, v_i8, k_scale, v_scale)`` (:func:`quantize_kv`) for
+    the int8 4-tuple."""
+    if len(cache) == 4:
+        k_q, k_s = quantize_kv(k)
+        v_q, v_s = quantize_kv(v)
+        return k_q, v_q, k_s, v_s
+    return k, v
+
+
 def _paged_span_write(cache, k, v, block_tables, span_starts, span_lens):
     """Write a token span ``k``/``v`` (B, C, H_kv, D) into the layer's
-    pool pair ``cache`` at positions ``[span_starts, span_starts +
-    span_lens)`` of each slot (``ops/cuda/ragged_attention.span_write``:
-    dead rows and sentinel table entries never touch the pools; a
-    ``PoolPair`` with spare rows takes the write that never syncs the
-    host).  In place; returns ``cache`` itself."""
-    if len(cache) != 2:
-        raise NotImplementedError(_INT8_POOLS)
-    _ra.span_write(cache[0], cache[1], k, v, block_tables, span_starts,
-                   span_lens, rows=getattr(cache, "rows", None))
+    pools ``cache`` -- the fp pair, or the int8 4-tuple, whose values and
+    scales are :func:`quantize_kv` of the span -- at positions
+    ``[span_starts, span_starts + span_lens)`` of each slot
+    (``ops/cuda/ragged_attention.write_spans``: dead rows and sentinel
+    table entries never touch the pools; a ``PoolPair`` with spare rows
+    takes the write that never syncs the host).  In place; returns
+    ``cache`` itself."""
+    _ra.write_spans(tuple(cache), _kv_sources(cache, k, v), block_tables,
+                    span_starts, span_lens, rows=getattr(cache, "rows", None))
     return cache
 
 
@@ -232,13 +268,21 @@ def paged_decode_attend(cache, q, new_k, new_v, block_tables, write_pos,
     slot (:func:`write_paged_kv`), then q (B, H, D) attends
     ``write_pos + 1`` positions (:func:`paged_attention`).  A dead slot's
     sentinel table drops its write and gives a finite output the caller
-    discards.  fp pools only: the int8 4-tuple raises.  Returns ``(out,
-    cache)``, the pools updated in place."""
-    if len(cache) != 2:
-        raise NotImplementedError(_INT8_POOLS)
+    discards.  The int8 4-tuple writes the quantized token as a one-row
+    span (:func:`_paged_span_write`) and attends through the
+    reference's composition: its pages gathered and dequantized in f32
+    (``_paged_gather_dense``), then ``_attend_dense_gqa``.  Returns
+    ``(out, cache)``, the pools updated in place."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     ctx = (write_pos + 1).to(torch.int32)
+    if len(cache) == 4:
+        cache = _paged_span_write(cache, new_k[:, None], new_v[:, None],
+                                  block_tables, write_pos,
+                                  torch.ones_like(write_pos))
+        kd, vd = _paged_gather_dense(cache[0], cache[1], block_tables,
+                                     cache[2], cache[3])
+        return _attend_dense_gqa(q, kd, vd, ctx, scale), cache
     kc, vc = write_paged_kv(cache[0], cache[1], new_k, new_v, block_tables,
                             ctx)
     return paged_attention(q, kc, vc, block_tables, ctx, scale=scale), \
@@ -318,11 +362,20 @@ def ragged_paged_attend(cache, q, new_k, new_v, block_tables, span_starts,
     is written at ``[start, start + len)`` of each slot, then query row
     ``j`` attends pool positions ``[0, start + j]``.  ``q``/``new_k``/
     ``new_v`` are (B, C, H|H_kv, D); ``cache`` is the layer's (k, v) pool
-    pair (NB, page, H_kv, D).  Returns ``(out (B, C, H, D), cache)``."""
+    pair (NB, page, H_kv, D), which the ragged-attention kernel attends,
+    or the int8 4-tuple, attended as the reference attends it on every
+    backend: the slots' pages gathered and dequantized in f32
+    (``_paged_gather_dense``), then ``_ragged_attend_dense`` -- fixed
+    shapes, no host sync, so the captured step takes it as it is.
+    Returns ``(out (B, C, H, D), cache)``."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     cache = _paged_span_write(cache, new_k, new_v, block_tables,
                               span_starts, span_lens)
+    if len(cache) == 4:
+        kd, vd = _paged_gather_dense(cache[0], cache[1], block_tables,
+                                     cache[2], cache[3])
+        return _ragged_attend_dense(q, kd, vd, span_starts, scale), cache
     kc, vc = cache
     out = _ra.ragged_paged_attention(q, kc, vc, block_tables, span_starts,
                                      span_lens, scale=scale)
@@ -370,10 +423,16 @@ def mega_decode_layer(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, cache,
     not take raises: nothing falls back), its plain version, the
     composition :func:`_mega_decode_layer_ref` on copies of the pools, on
     CPU tensors -- then the one shared span write puts the span k/v into
-    the pools, exactly as the composition writes them.  Forward only
-    (serving): the outputs carry no gradient."""
-    if len(cache) != 2:
-        raise NotImplementedError("mega_decode_layer: " + _INT8_POOLS)
+    the pools, exactly as the composition writes them.  The int8 4-tuple
+    is the composition itself, as in the reference, whose megakernel
+    declines int8 pools: the model families veto the megakernel for them
+    before they get here.  Forward only (serving): the outputs carry no
+    gradient."""
+    if len(cache) == 4:
+        return _mega_decode_layer_ref(x, norm_weight, w_q, w_k, w_v, w_o,
+                                      cos, sin, cache, block_tables,
+                                      span_starts, span_lens, head_dim, eps,
+                                      scale)
     dt = x.dtype
     out, k_new, v_new = _md.mega_decode(
         x, norm_weight.to(dt), w_q.to(dt), w_k.to(dt), w_v.to(dt),
@@ -414,23 +473,37 @@ def lora_delta(lora, inp, key):
 
 def prefill_write_cache(cache, k, v, offset: int = 0):
     """Write a prefill chunk ``k``/``v`` (B, S, H_kv, D) at positions
-    ``[offset, offset + S)`` of the dense fp cache pair ``cache``
-    ((B, S_max, H_kv, D) each).  In place; returns ``cache``.  The int8
-    4-tuple raises."""
-    if len(cache) != 2:
-        raise NotImplementedError(_INT8_DENSE)
+    ``[offset, offset + S)`` of the dense cache tuple ``cache``: the fp
+    pair ((B, S_max, H_kv, D) each), or the int8 4-tuple, which takes
+    :func:`quantize_kv` of the chunk, values and (B, S_max, H_kv) scales.
+    In place; returns ``cache``."""
     s = k.shape[1]
-    for dst, src in zip(cache, (k, v)):
+    for dst, src in zip(cache, _kv_sources(cache, k, v)):
         dst[:, offset:offset + s] = src.to(dst.dtype)
     return cache
 
 
+def read_cache_prefix(cache, length: int, dtype):
+    """Positions ``[0, length)`` of a dense cache tuple as ``dtype`` K/V:
+    the int8 4-tuple dequantized through its scales, in ``dtype``, as the
+    reference's chunked prefill reads the cached prefix."""
+    if len(cache) == 4:
+        kc, vc, ks, vs = cache
+        return (kc[:, :length].to(dtype) * ks[:, :length, :, None].to(dtype),
+                vc[:, :length].to(dtype) * vs[:, :length, :, None].to(dtype))
+    kc, vc = cache
+    return kc[:, :length].to(dtype), vc[:, :length].to(dtype)
+
+
 def decode_attend_cache(cache, q, new_k, new_v, seq_lens):
-    """One decode step against a dense cache tuple: the cache-arity
-    dispatch shared by the model families (the int8 4-tuple raises).
+    """One decode step against a dense cache tuple -- the fp pair or the
+    int8 4-tuple: the cache-arity dispatch shared by the model families.
     Returns ``(out, cache)``, the cache updated in place."""
-    if len(cache) != 2:
-        raise NotImplementedError(_INT8_DENSE)
+    if len(cache) == 4:
+        kc, vc, ks, vs = cache
+        out, kc, vc, ks, vs = masked_multihead_attention(
+            q, kc, vc, seq_lens, new_k, new_v, k_scale=ks, v_scale=vs)
+        return out, (kc, vc, ks, vs)
     out, kc, vc = masked_multihead_attention(q, cache[0], cache[1],
                                              seq_lens, new_k, new_v)
     return out, (kc, vc)
@@ -445,8 +518,8 @@ def _write_at(cache, new, seq_lens):
     rows = torch.arange(b, device=cache.device) * s_max + \
         pos.clamp(max=s_max - 1)
     flat = cache.view(b * s_max, *cache.shape[2:])
-    val = torch.where((pos < s_max)[:, None, None], new.to(cache.dtype),
-                      flat.index_select(0, rows))
+    past = (pos < s_max).view(b, *([1] * (new.dim() - 1)))
+    val = torch.where(past, new.to(cache.dtype), flat.index_select(0, rows))
     flat.index_copy_(0, rows, val)
 
 
@@ -461,21 +534,38 @@ def masked_multihead_attention(q, k_cache, v_cache, seq_lens, new_k=None,
     ``seq_lens`` when given.  q attends positions ``[0, seq_lens]``, the
     new token included.  On CUDA tensors the paged-attention kernel reads
     the caches as one page per slot (a cache it cannot take raises), on
-    CPU tensors :func:`_attend_dense_gqa` runs.  ``k_scale``/``v_scale``
-    (the int8 caches) raise.  Returns ``(out, k_cache, v_cache)``."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_INT8_DENSE)
+    CPU tensors :func:`_attend_dense_gqa` runs.  Returns ``(out, k_cache,
+    v_cache)``.
+
+    int8 caches come with ``k_scale``/``v_scale`` (B, S_max, H_kv) f32:
+    the new token is written quantized (:func:`quantize_kv`), values and
+    scales, and q attends the caches through the reference's
+    composition on every device -- K dequantized in bf16
+    (``k_cache.bf16 * k_scale.bf16``), V in f32, then
+    :func:`_attend_dense_gqa` -- and ``(out, k_cache, v_cache, k_scale,
+    v_scale)`` is returned."""
+    quantized = k_scale is not None
     if new_k is not None:
-        _write_at(k_cache, new_k, seq_lens)
-        _write_at(v_cache, new_v, seq_lens)
+        caches = (k_cache, v_cache) + ((k_scale, v_scale) if quantized
+                                       else ())
+        for dst, src in zip(caches, _kv_sources(caches, new_k, new_v)):
+            _write_at(dst, src, seq_lens)
     ctx = (seq_lens + 1).to(torch.int32)
-    out = _pa.dense_attention(q, k_cache, v_cache, ctx, scale)
-    return out, k_cache, v_cache
+    if not quantized:
+        out = _pa.dense_attention(q, k_cache, v_cache, ctx, scale)
+        return out, k_cache, v_cache
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    k_read = k_cache.to(torch.bfloat16) * \
+        k_scale.to(torch.bfloat16)[..., None]
+    v_read = v_cache.float() * v_scale[..., None]
+    out = _attend_dense_gqa(q, k_read, v_read, ctx, scale)
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
 def paged_copy_blocks(cache, src_blocks, dst_blocks):
     """Copy whole pages ``src_blocks[i] -> dst_blocks[i]`` inside every
-    pool of ``cache`` (the device half of copy-on-write).  Entries whose
+    pool of ``cache`` -- k and v, and an int8 4-tuple's scales with them
+    (the device half of copy-on-write).  Entries whose
     destination is out of range (the ``num_blocks`` padding sentinel) are
     dropped before indexing.  In place; returns ``cache``."""
     nb = cache[0].shape[0]

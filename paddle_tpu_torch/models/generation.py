@@ -19,11 +19,15 @@ Design:
 - configs without cache support recompute the full prefix per token
   (``use_cache=False``), the greedy oracle of the cached path.
 
-Beam search and int8 dense caches raise ``NotImplementedError``
-(ROADMAP.md).  Temperature draws use a ``torch.Generator`` on the
-logits' device, seeded per (call seed, emit index), the call seed drawn
-from ``core.random``'s global stream: reproducible after ``seed(s)``,
-not bit-equal to the reference's jax draws.
+``kv_cache_dtype="int8"`` gives the reference's quantized dense caches,
+4-tuples ``(k_i8, v_i8, k_scale, v_scale)`` (``make_dense_caches``),
+written and attended by ``incubate.nn.functional``'s int8 branches; the
+captured decode step holds them like the fp pair.  Beam search raises
+``NotImplementedError`` (ROADMAP.md).  Temperature draws use a
+``torch.Generator`` on the logits' device, seeded per (call seed, emit
+index), the call seed drawn from ``core.random``'s global stream:
+reproducible after ``seed(s)``, not bit-equal to the reference's jax
+draws.
 
 Host model contract: ``self.model.init_cache(b, total, dtype=None)``;
 the cached forward ``self.model(ids, caches=..., seq_lens=...) ->
@@ -38,6 +42,7 @@ import itertools
 import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import random as prandom
@@ -48,22 +53,42 @@ __all__ = ["CachedGenerationMixin", "DecodeGraph", "filter_logits",
 _NOT_PORTED = " is not ported yet (ROADMAP.md, queue 1 item 2a)"
 
 
+def _is_int8(dtype) -> bool:
+    """Every spelling of int8 -- ``"int8"``, ``"paddle.int8"``,
+    ``np.int8``, ``torch.int8`` -- so none silently allocates raw UNSCALED
+    int8 caches (the reference's ``_is_int8``, plus torch's dtype)."""
+    if dtype is None:
+        return False
+    if dtype is torch.int8 or str(dtype) in ("int8", "paddle.int8"):
+        return True
+    try:
+        return np.dtype(dtype) == np.int8
+    except TypeError:
+        return False
+
+
 def _cache_dtype(dtype) -> torch.dtype:
-    """The torch dtype of dense caches of ``dtype``; int8 (the reference's
-    quantized 4-tuple caches) raises."""
+    """The torch dtype of dense caches of ``dtype``: ``torch.int8`` for
+    the quantized 4-tuple caches, else the float dtype."""
     from .llama import torch_dtype
-    if dtype in ("int8", torch.int8):
-        raise NotImplementedError("int8 dense KV caches" + _NOT_PORTED)
-    return torch_dtype(dtype)
+    return torch.int8 if _is_int8(dtype) else torch_dtype(dtype)
 
 
 def make_dense_caches(n_layers, batch, max_len, kv_heads, head_dim, dtype,
                       device=None):
     """Per-layer dense (k, v) cache pairs of (batch, max_len, kv_heads,
-    head_dim) zeros.  ``dtype="int8"`` (the reference's quantized 4-tuple
-    caches) raises."""
+    head_dim) zeros.  ``dtype="int8"`` (any spelling, :func:`_is_int8`)
+    gives the reference's QUANTIZED caches instead: 4-tuples ``(k_i8,
+    v_i8, k_scale, v_scale)``, int8 zeros and (batch, max_len, kv_heads)
+    f32 scales of ones."""
     shape = (batch, max_len, kv_heads, head_dim)
     dt = _cache_dtype(dtype)
+    if dt == torch.int8:
+        return [tuple(torch.zeros(shape, dtype=dt, device=device)
+                      for _ in range(2)) +
+                tuple(torch.ones(shape[:3], dtype=torch.float32,
+                                 device=device) for _ in range(2))
+                for _ in range(n_layers)]
     return [(torch.zeros(shape, dtype=dt, device=device),
              torch.zeros(shape, dtype=dt, device=device))
             for _ in range(n_layers)]
@@ -244,8 +269,11 @@ class CachedGenerationMixin:
         ("greedy_search" forces temperature 0, "sampling" a temperature
         > 0) follow the reference.  ``eos_token_id``: a row that emits it
         keeps emitting ``pad_token_id`` (default: the eos id); the output
-        length stays fixed.  Beam search (``num_beams > 1``) and
-        ``kv_cache_dtype="int8"`` raise ``NotImplementedError``.
+        length stays fixed.  ``kv_cache_dtype`` sets the caches' dtype
+        (default the model's); ``"int8"`` quantizes them (per-position,
+        per-head scales) and needs the cached path: the recompute path
+        raises ``ValueError`` on any ``kv_cache_dtype``.  Beam search
+        (``num_beams > 1``) raises ``NotImplementedError``.
         ``_eager_step`` runs the decode steps without the graph, on the
         same caches and buffers (the smoke's in-process eager twin)."""
         if decode_strategy not in (None, "greedy_search", "sampling",

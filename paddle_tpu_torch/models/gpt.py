@@ -23,9 +23,10 @@ Ported:
   launches the kernel on the card or raises naming the shape or dtype it
   cannot take (H and F multiples of 128, f32 or bf16), and runs the
   plain version on the CPU; ``"off"`` and weight-only quantized
-  projections (``_use_fused``'s veto) take the unfused branch.
-Pipeline stages, sequence parallelism, recompute, dropout, multi-LoRA,
-beam search and int8 dense caches raise ``NotImplementedError``
+  projections (``_use_fused``'s veto) take the unfused branch;
+- int8 KV caches, dense and paged, as for the port's Llama.
+Pipeline stages, sequence parallelism, recompute, dropout, multi-LoRA
+and beam search raise ``NotImplementedError``
 (ROADMAP.md lists them as still to port).
 
 Learned positions past the table.  The ragged step gives each slot's
@@ -218,8 +219,9 @@ class GPTModel(nn.Module):
 
     def init_cache(self, batch, max_len, dtype=None):
         """Per-layer dense (k, v) caches for cached generation on the
-        model's device.  A capacity past the learned position table
-        raises."""
+        model's device (``"int8"``: the quantized 4-tuples of
+        ``make_dense_caches``).  A capacity past the learned position
+        table raises."""
         cfg = self.cfg
         if max_len > cfg.max_position_embeddings:
             raise ValueError(

@@ -40,8 +40,13 @@ Ported:
 - multi-LoRA: the ``lora`` pair ``(per-layer stack packs, per-slot
   adapter ids)`` threads through the cached forward; each layer then
   takes the unfused branch and adds ``lora_delta`` to q/k/v (before
-  RoPE), o, gate, up and down.
-Beam search, int8 dense caches, context/model parallelism, the
+  RoPE), o, gate, up and down;
+- int8 KV caches (``init_cache(dtype="int8")``, the Engine's and
+  ``PagedKVCache``'s int8 pools): the 4-tuples thread through every
+  cached path unchanged, ``incubate.nn.functional`` choosing the int8
+  branch by the tuple's arity; the megakernel is vetoed for them
+  (``_use_mega``).
+Beam search, context/model parallelism, the
 chunked loss and ``fuse_qkv_mlp`` raise ``NotImplementedError``
 (ROADMAP.md lists them as still to port).  ``"auto"`` resolves to
 ``"on"``: in the port every fused entry point serves (the kernel on the
@@ -329,14 +334,19 @@ class LlamaDecoderLayer(nn.Module):
             return x, self.input_layernorm.weight
         return self.input_layernorm(x), None
 
-    def _use_mega(self) -> bool:
+    def _use_mega(self, cache) -> bool:
         """Whether the paged step's attention block is the one
-        ``mega_decode_layer`` entry: only under ``fused_ops="mega"``, and
-        never for quantized projections (``_use_fused``'s veto).  On the
+        ``mega_decode_layer`` entry: only under ``fused_ops="mega"``, never
+        for quantized projections (``_use_fused``'s veto) and never for
+        int8 KV pools (the 4-tuple ``cache``), which the megakernel does
+        not read -- in the reference it declines them too
+        (``ops/pallas/mega_decode.py``), so their layer runs the fused
+        QKV kernel, the int8 ragged composition and ``o_proj``.  On the
         card the kernel then serves or raises; the LoRA path never
         reaches here (the caller pins the unfused branch)."""
         attn = self.self_attn
-        return self.cfg.fused_ops == "mega" and _use_fused(
+        return self.cfg.fused_ops == "mega" and len(cache) == 2 and \
+            _use_fused(
             self.cfg, (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj))
 
     def forward(self, x, cos, sin, attn_mask=None, cache=None,
@@ -345,7 +355,7 @@ class LlamaDecoderLayer(nn.Module):
         """Without a cache returns ``x``; with the paged pools returns
         ``(x, cache)``."""
         if cache is not None and span_starts is not None and lora is None \
-                and self._use_mega():
+                and self._use_mega(cache):
             from ..incubate.nn.functional import mega_decode_layer
             cfg = self.cfg
             b, s = x.shape[:2]
@@ -395,7 +405,8 @@ class LlamaModel(nn.Module):
 
     def init_cache(self, batch, max_len, dtype=None):
         """Per-layer dense (k, v) caches for cached generation on the
-        model's device; dtype defaults to the config's.  int8 raises."""
+        model's device; dtype defaults to the config's, and ``"int8"``
+        gives the quantized 4-tuples (``make_dense_caches``)."""
         cfg = self.cfg
         return make_dense_caches(
             cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,

@@ -40,6 +40,18 @@ def check(op: str, cond: bool, what: str) -> None:
         raise ValueError(f"{op}: {what}")
 
 
+def fp_pools(op: str, *pools: torch.Tensor) -> None:
+    """Raise on int8 KV pools or caches, on any device: the attention
+    kernels read fp pools only, and int8 ones attend through
+    ``incubate.nn.functional``'s dequantizing composition, chosen there by
+    the cache's arity (as in the reference, whose kernels are fp-only)."""
+    for t in pools:
+        if t.dtype == torch.int8:
+            raise ValueError(
+                f"{op}: int8 KV pools are attended by the dequantizing "
+                "composition in incubate.nn.functional, not this kernel")
+
+
 def check_dense(op: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
     """Every tensor contiguous, of ``dtype`` and 16-byte aligned (the
     kernels load 16-byte vectors).  The messages are formatted only on

@@ -34,7 +34,7 @@ import torch
 from . import fused_norm_qkv as _fq
 from . import ragged_attention as _ra
 from ._build import Kernel, dtype_code, stream_of
-from ._common import check, check_dense, dot_f32, on_cuda
+from ._common import check, check_dense, dot_f32, fp_pools, on_cuda
 from .mega_plan import check_plan, mega_plan
 from .mlp_plan import sm_count
 
@@ -142,8 +142,9 @@ def mega_decode(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, k_pool,
     pools (NB, page, H_kv, D); tables (B, MB), starts/lens (B,) int32 ->
     ``(x + o_proj(attention) (B, C, H), span_k (B, C, Nk), span_v (B, C,
     Nk))`` in x.dtype.  CUDA tensors launch the kernel (or raise), CPU
-    tensors run :func:`plain`."""
+    tensors run :func:`plain`; int8 pools raise on either."""
     op = "mega_decode"
+    fp_pools(op, k_pool, v_pool)
     if not on_cuda(op, x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, k_pool,
                    v_pool, block_tables, starts, lens, kernel=KERNEL):
         return plain(x, norm_weight, w_q, w_k, w_v, w_o, cos, sin, k_pool,

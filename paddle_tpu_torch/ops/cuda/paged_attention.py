@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from ._build import Kernel, dtype_code, stream_of
-from ._common import check, check_dense, on_cuda
+from ._common import check, check_dense, fp_pools, on_cuda
 from .mlp_plan import sm_count
 from .paged_plan import PagedPlan, paged_plan
 from .ragged_attention import paged_gather_dense
@@ -119,8 +119,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens,
                     scale: Optional[float] = None):
     """q (B, H, D) over paged KV pools -> (B, H, D).  CUDA tensors launch
     the kernel (f32, bf16 or f16; head dims 32, 64, 96, 128), CPU tensors
-    run :func:`plain`."""
+    run :func:`plain`; int8 pools raise on either."""
     op = "paged_attention"
+    fp_pools(op, k_pool, v_pool)
     if not on_cuda(op, q, k_pool, v_pool, block_tables, lens,
                    kernel=KERNEL):
         return plain(q, k_pool, v_pool, block_tables, lens, scale)
@@ -150,7 +151,8 @@ def dense_attention(q, k_cache, v_cache, lens,
     it) and q cast to the caches' dtype, the one dtype the kernel reads;
     a cache the kernel cannot take raises.  CPU tensors run
     :func:`attend_dense_gqa` (NaN where ``lens == 0``; the kernel gives
-    zeros there)."""
+    zeros there).  int8 caches raise on either."""
+    fp_pools("paged_attention", k_cache, v_cache)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not on_cuda("paged_attention", q, k_cache, v_cache, lens,

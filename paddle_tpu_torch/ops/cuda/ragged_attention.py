@@ -27,13 +27,14 @@ from typing import Optional
 import torch
 
 from ._build import Kernel, dtype_code, stream_of
-from ._common import check, check_dense, on_cuda, out_and_scratch
+from ._common import (check, check_dense, fp_pools, on_cuda,
+                      out_and_scratch)
 from .mlp_plan import sm_count
 from .ragged_plan import ragged_plan
 
-__all__ = ["KERNEL", "PoolPair", "paged_gather_dense", "plain",
-           "pool_pair", "ragged_attend_dense", "ragged_paged_attention",
-           "span_write"]
+__all__ = ["KERNEL", "PoolPair", "int8_pools", "paged_gather_dense",
+           "plain", "pool_pair", "ragged_attend_dense",
+           "ragged_paged_attention", "span_write", "write_spans"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("ragged_attention", "pt_ragged_paged_attention",
@@ -41,35 +42,65 @@ KERNEL = Kernel("ragged_attention", "pt_ragged_paged_attention",
 
 
 class PoolPair(tuple):
-    """A decoder layer's ``(k, v)`` paged pools, (NB, page, H_kv, D) each,
-    whose storage holds spare rows of (H_kv, D) behind the NB * page rows
-    of each pool: the dead rows of :func:`span_write` land there.
-    ``rows`` is ``(k_rows, v_rows)``, each (NB * page + spare, H_kv, D);
-    the pools are their leading views, with a fresh tensor's strides.
-    Make one with :func:`pool_pair`."""
+    """A decoder layer's paged pools -- fp ``(k, v)``, (NB, page, H_kv, D)
+    each, or int8 ``(k, v, k_scale, v_scale)`` with (NB, page, H_kv) f32
+    scales -- whose storage holds spare rows behind the NB * page rows of
+    each pool: the dead rows of :func:`span_write` land there.  ``rows``
+    holds each pool's rows, (NB * page + spare, *tail); the pools are
+    their leading views, with a fresh tensor's strides.  Make one with
+    :func:`pool_pair` or :func:`int8_pools`."""
 
     rows: tuple
+
+
+def _pools_with_rows(num_blocks: int, page: int, tails, dtypes, fills,
+                     spare: int, device) -> PoolPair:
+    rows = tuple(torch.full((num_blocks * page + spare, *tail), fill,
+                            dtype=dt, device=device)
+                 for tail, dt, fill in zip(tails, dtypes, fills))
+    pools = PoolPair(r[:num_blocks * page].view(num_blocks, page, *r.shape[1:])
+                     for r in rows)
+    pools.rows = rows
+    return pools
 
 
 def pool_pair(num_blocks: int, page: int, h_kv: int, d: int, spare: int,
               dtype, device) -> PoolPair:
     """Zeroed pools (NB, page, H_kv, D) with ``spare`` hidden rows behind
     each (:class:`PoolPair`)."""
-    rows = tuple(torch.zeros((num_blocks * page + spare, h_kv, d),
-                             dtype=dtype, device=device) for _ in range(2))
-    pair = PoolPair(r[:num_blocks * page].view(num_blocks, page, h_kv, d)
-                    for r in rows)
-    pair.rows = rows
-    return pair
+    return _pools_with_rows(num_blocks, page, [(h_kv, d)] * 2, [dtype] * 2,
+                            [0, 0], spare, device)
+
+
+def int8_pools(num_blocks: int, page: int, h_kv: int, d: int, spare: int,
+               device) -> PoolPair:
+    """The int8 4-tuple ``(k, v, k_scale, v_scale)``: zeroed int8 values
+    (NB, page, H_kv, D) and f32 scales (NB, page, H_kv) of ones (the
+    reference's initial pools), each with ``spare`` hidden rows behind
+    it (:class:`PoolPair`)."""
+    return _pools_with_rows(num_blocks, page,
+                            [(h_kv, d)] * 2 + [(h_kv,)] * 2,
+                            [torch.int8] * 2 + [torch.float32] * 2,
+                            [0, 0, 1, 1], spare, device)
 
 
 def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens,
                rows=None):
     """Write a token span ``k``/``v`` (B, C, H_kv, D) into the paged pools
-    at positions ``[span_starts, span_starts + span_lens)`` of each slot.
-    Rows ``>= span_lens`` (chunk padding, idle slots) are dead: neither
-    they nor a sentinel table entry ever change a pool element.  In
-    place; returns the pools.
+    at positions ``[span_starts, span_starts + span_lens)`` of each slot
+    (:func:`write_spans` over the pair).  In place; returns the pools."""
+    return write_spans((k_pool, v_pool), (k, v), block_tables, span_starts,
+                       span_lens, rows=rows)
+
+
+def write_spans(pools, srcs, block_tables, span_starts, span_lens,
+                rows=None):
+    """Write each source (B, C, *tail) into its paged pool (NB, page,
+    *tail) at positions ``[span_starts, span_starts + span_lens)`` of each
+    slot: k and v, and an int8 pool set's scales beside them.  Rows
+    ``>= span_lens`` (chunk padding, idle slots) are dead: neither they
+    nor a sentinel table entry ever change a pool element.  In place;
+    returns ``pools``.
 
     With ``rows`` (:attr:`PoolPair.rows`) holding at least B * C spare
     rows, the write is fixed-shape index arithmetic over all B * C rows
@@ -79,40 +110,42 @@ def span_write(k_pool, v_pool, k, v, block_tables, span_starts, span_lens,
     host (the engine's captured step takes this path).  Without them the
     dead rows are masked out by ``nonzero()``, which syncs the host with
     the card once per call (pools that callers allocate themselves)."""
-    b, s = k.shape[:2]
-    nb, bs = k_pool.shape[:2]
+    b, s = srcs[0].shape[:2]
+    nb, bs = pools[0].shape[:2]
     if rows is None or rows[0].shape[0] - nb * bs < b * s:
-        return _masked_span_write(k_pool, v_pool, k, v, block_tables,
-                                  span_starts, span_lens)
+        return _masked_span_write(pools, srcs, block_tables, span_starts,
+                                  span_lens)
     mb = block_tables.shape[1]
-    ar = torch.arange(s, device=k.device)
+    dev = srcs[0].device
+    ar = torch.arange(s, device=dev)
     pos = span_starts.long()[:, None] + ar[None, :]              # (B, C)
     blk = block_tables.long().gather(1, torch.clamp(pos // bs, max=mb - 1))
     live = (ar[None, :] < span_lens.long()[:, None]) & (blk >= 0) & \
         (blk < nb)
-    spare = nb * bs + torch.arange(b * s, device=k.device).view(b, s)
+    spare = nb * bs + torch.arange(b * s, device=dev).view(b, s)
     idx = torch.where(live, blk * bs + pos % bs, spare).view(-1)
-    for dst, src in zip(rows, (k, v)):
+    for dst, src in zip(rows, srcs):
         dst.index_copy_(0, idx, src.reshape(b * s, *src.shape[2:])
                         .to(dst.dtype))
-    return k_pool, v_pool
+    return pools
 
 
-def _masked_span_write(k_pool, v_pool, k, v, block_tables, span_starts,
-                       span_lens):
-    s = k.shape[1]
-    bs = k_pool.shape[1]
+def _masked_span_write(pools, srcs, block_tables, span_starts, span_lens):
+    s = srcs[0].shape[1]
+    nb, bs = pools[0].shape[:2]
     mb = block_tables.shape[1]
-    ar = torch.arange(s, device=k.device)
+    ar = torch.arange(s, device=srcs[0].device)
     pos = span_starts.long()[:, None] + ar[None, :]              # (B, C)
     live = ar[None, :] < span_lens.long()[:, None]
     bi, ci = live.nonzero(as_tuple=True)
     p = pos[bi, ci]
     blk = block_tables.long()[bi, torch.clamp(p // bs, max=mb - 1)]
+    keep = (blk >= 0) & (blk < nb)
+    bi, ci, blk, p = bi[keep], ci[keep], blk[keep], p[keep]
     off = p % bs
-    k_pool[blk, off] = k[bi, ci].to(k_pool.dtype)
-    v_pool[blk, off] = v[bi, ci].to(v_pool.dtype)
-    return k_pool, v_pool
+    for dst, src in zip(pools, srcs):
+        dst[blk, off] = src[bi, ci].to(dst.dtype)
+    return pools
 
 
 def paged_gather_dense(k_cache, v_cache, block_tables, k_scale=None,
@@ -120,16 +153,21 @@ def paged_gather_dense(k_cache, v_cache, block_tables, k_scale=None,
     """A batch's pages gathered into dense (B, MB*page, H_kv, D) K/V.
     Table entries are CLAMPED into [0, NB) first: the out-of-range
     sentinel that pads tables gathers a real page, which the causal mask
-    never lets a live row see.  int8 pools dequantize through their
-    per-(position, head) f32 scales."""
+    never lets a live row see (JAX clamps a gather's index the same way);
+    one ``index_select`` per pool, so nothing syncs the host.  int8 pools
+    dequantize through their per-(position, head) f32 scales into f32, as
+    the reference's ``_paged_gather_dense`` does."""
     nb, bs, h_kv, d = k_cache.shape
     b, mb = block_tables.shape
-    idx = block_tables.long().clamp(0, nb - 1)
-    k = k_cache[idx].reshape(b, mb * bs, h_kv, d)
-    v = v_cache[idx].reshape(b, mb * bs, h_kv, d)
+    idx = block_tables.long().clamp(0, nb - 1).view(-1)
+
+    def take(pool):
+        return pool.index_select(0, idx).view(b, mb * bs, *pool.shape[2:])
+
+    k, v = take(k_cache), take(v_cache)
     if k_scale is not None:
-        k = k.float() * k_scale[idx].reshape(b, mb * bs, h_kv)[..., None]
-        v = v.float() * v_scale[idx].reshape(b, mb * bs, h_kv)[..., None]
+        k = k.float() * take(k_scale)[..., None]
+        v = v.float() * take(v_scale)[..., None]
     return k, v
 
 
@@ -162,9 +200,11 @@ def plain(q, k_pool, v_pool, block_tables, starts, lens,
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, starts, lens,
                            scale: Optional[float] = None):
-    """q (B, C, H, D) spans over paged KV pools -> (B, C, H, D).  CUDA
-    tensors launch the kernel, CPU tensors run :func:`plain`."""
+    """q (B, C, H, D) spans over paged fp KV pools -> (B, C, H, D).  CUDA
+    tensors launch the kernel, CPU tensors run :func:`plain`; int8 pools
+    raise on either."""
     op = "ragged_paged_attention"
+    fp_pools(op, k_pool, v_pool)
     if not on_cuda(op, q, k_pool, v_pool, block_tables, starts, lens,
                    kernel=KERNEL):
         return plain(q, k_pool, v_pool, block_tables, starts, lens, scale)

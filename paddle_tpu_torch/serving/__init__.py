@@ -1,9 +1,10 @@
 """Serving tier of the port: the paged ragged ``Engine`` (speculative
 decoding, preemption with KV pages swapped to host and back, per-request
-fault isolation), its scheduler, block allocator, prefix cache and swap
-manager, the n-gram draft proposer, the multi-LoRA adapter pool, and the
-typed admission errors.  Not ported yet (ROADMAP.md): int8 KV pools,
-telemetry, meshes, disaggregated roles and the front door."""
+fault isolation, fp or int8 KV pools), its scheduler, block allocator,
+prefix cache and swap manager, the n-gram draft proposer, the multi-LoRA
+adapter pool, and the typed admission errors.  Not ported yet
+(ROADMAP.md): telemetry, meshes, disaggregated roles and the front
+door."""
 
 from ..resilience.retry import RetryPolicy
 from .block_allocator import (BlockAllocator, PagedKVCache, PrefixCache,

@@ -46,7 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.cuda.ragged_attention import pool_pair
+from ..ops.cuda.ragged_attention import int8_pools, pool_pair
 from ..resilience import _state as _rs_state
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "SwapManager",
@@ -258,36 +258,42 @@ class PrefixCache:
 class PagedKVCache:
     """Per-layer paged k/v pools + their allocator.
 
-    ``caches`` is a list (one entry per decoder layer) of ``(k, v)`` pool
-    pairs of shape ``(num_blocks, page, H_kv, D)`` on ``device`` -- the
-    reference's fp layout, which the kernels and the plain versions
-    share.  The engine's step writes them IN PLACE.  Each pair is an
-    ``ops.cuda.ragged_attention.PoolPair`` whose storage holds
-    ``spare_rows`` hidden rows behind each pool: with at least B x C of
-    them (the engine asks for its step's), the span write sends dead
-    rows there instead of masking them on the host, so the step never
-    syncs.  The pools keep a fresh tensor's strides and contents.  int8
-    pools and the tensor-parallel layout are not ported yet
-    (ROADMAP.md).
+    ``caches`` is a list (one entry per decoder layer) of pool tuples in
+    the ``incubate.nn.functional`` cache-arity convention: fp ``(k, v)``
+    of shape ``(num_blocks, page, H_kv, D)`` on ``device`` -- the layout
+    the kernels and the plain versions share -- or, with ``dtype="int8"``
+    (any spelling: ``"int8"``, ``"paddle.int8"``, ``np.int8``,
+    ``torch.int8``), quantized ``(k_i8, v_i8, k_scale, v_scale)`` with
+    ``(num_blocks, page, H_kv)`` f32 scales (``quantize_kv``, the formula
+    of the dense int8 caches).  The engine's step writes them IN PLACE.
+    Each tuple is an ``ops.cuda.ragged_attention.PoolPair`` whose storage
+    holds ``spare_rows`` hidden rows behind each pool, scales included:
+    with at least B x C of them (the engine asks for its step's), the
+    span write sends dead rows there instead of masking them on the host,
+    so the step never syncs.  The pools keep a fresh tensor's strides;
+    values start at zero, scales at one.  The tensor-parallel layout is
+    not ported yet (ROADMAP.md).
     """
 
     def __init__(self, num_layers: int, num_blocks: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.float32,
                  device=None, spare_rows: int = 0):
+        from ..models.generation import _is_int8
+        from ..models.llama import torch_dtype
         if page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
-        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-            raise NotImplementedError(
-                f"paged pools of dtype {dtype!r}: only float pools are "
-                "ported (int8 pools: ROADMAP.md)")
+        self.quantized = _is_int8(dtype)
+        if not self.quantized:
+            dtype = torch_dtype(dtype)
         self.num_layers = int(num_layers)
         self.num_blocks = int(num_blocks)
         self.page_size = int(page_size)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
-        self.caches = [pool_pair(self.num_blocks, self.page_size,
-                                 self.num_kv_heads, self.head_dim,
-                                 int(spare_rows), dtype, device)
+        geom = (self.num_blocks, self.page_size, self.num_kv_heads,
+                self.head_dim, int(spare_rows))
+        self.caches = [int8_pools(*geom, device) if self.quantized
+                       else pool_pair(*geom, dtype, device)
                        for _ in range(self.num_layers)]
         self.allocator = BlockAllocator(self.num_blocks)
 
@@ -300,6 +306,8 @@ class PagedKVCache:
         return self.num_blocks
 
     def nbytes(self) -> int:
+        """Bytes of every layer's pools, the int8 scales included (the
+        spare rows behind them not)."""
         per_layer = sum(a.numel() * a.element_size() for a in self.caches[0])
         return per_layer * self.num_layers
 
@@ -341,6 +349,8 @@ class SwapManager:
     Both directions work in chunks of ``chunk`` pages: a gather of the
     chunk's rows (``index_select``) and its copy to host, or the copy to
     the card and an in-place ``index_copy_`` into the same pool tensors.
+    An int8 layer's scales are pools of its tuple, so they ride the same
+    copies.
     The pools never move (a captured step reads them by address) and the
     spare rows behind them (``PagedKVCache(spare_rows=)``) are never
     touched.  On the card the host buffers are pinned and the copies are

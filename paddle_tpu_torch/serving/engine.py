@@ -64,8 +64,17 @@ the LM head over every span position and the host keeps the longest
 accepted prefix plus one bonus token.  Draft length is span-length data:
 every depth 0..K rides the one capture.
 
-Not ported yet (ROADMAP.md): meshes, disaggregated roles, int8 KV pools,
-telemetry and ``slo_capture``.
+int8 KV pools (``kv_cache_dtype="int8"``): the pools hold int8 values and
+f32 scales per (position, head) (``PagedKVCache``, ``quantize_kv``), about
+half the bytes per token of bf16 pools.  The step writes them quantized
+and attends them through the reference's gather+dequant composition
+(``incubate.nn.functional.ragged_paged_attend``), inside the same
+captured step; the ragged-attention kernel and the megakernel make no
+launch there.  Prefix sharing, copy-on-write and preemption move the
+scales with the values.  :meth:`hbm_stats` counts the card's bytes.
+
+Not ported yet (ROADMAP.md): meshes, disaggregated roles, telemetry and
+``slo_capture``.
 """
 
 from __future__ import annotations
@@ -215,6 +224,13 @@ class Engine:
     the engine still captures one step.  It does not compose with
     ``lora`` yet.
 
+    ``kv_cache_dtype``: the KV pools' dtype, default the model's; a float
+    dtype (``torch.bfloat16``, ``"float32"``, ...; on the card the
+    ragged-attention kernel takes pools of the activations' dtype only,
+    and raises on others) or ``"int8"`` (also ``"paddle.int8"``,
+    ``np.int8``, ``torch.int8``) for the quantized pools, which compose
+    with every option above.
+
     ``margins``: set it to a dict to record, per request id, the top-2
     logit margin of every emitted token (the near-tie rule of the
     token-identity checks; under ``spec_decode`` the margin at the span
@@ -233,7 +249,8 @@ class Engine:
                  retry: Optional[RetryPolicy] = None,
                  weight_quant: Optional[str] = None,
                  spec_decode: bool = False, draft_depth: int = 4,
-                 lora=None, device=None, _eager_step: bool = False):
+                 lora=None, kv_cache_dtype=None, device=None,
+                 _eager_step: bool = False):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
@@ -314,8 +331,13 @@ class Engine:
         if num_blocks is None:
             # enough for every slot to run a full-length sequence
             num_blocks = self.max_batch * self.max_blocks_per_seq
-        dtype = next(model.parameters()).dtype
+        dtype = kv_cache_dtype if kv_cache_dtype is not None else \
+            next(model.parameters()).dtype
         b, c = self.max_batch, self.prefill_chunk
+        # what the card held before this engine's own buffers (the model,
+        # a LoRA pool, other tenants): hbm_stats' baseline
+        self._alloc_before = torch.cuda.memory_allocated(self.device) \
+            if self.device.type == "cuda" else 0
         # one spare row per (slot, span row): the span write's dead rows
         self.kv = PagedKVCache(n_layers, num_blocks, self.page_size,
                                kv_heads, head_dim, dtype=dtype,
@@ -540,6 +562,33 @@ class Engine:
             return {"active_adapters": 0, "max_adapters": 0, "rank": 0,
                     "loads": 0, "evictions": 0, "live_refs": 0}
         return self.lora.stats()
+
+    def hbm_stats(self) -> Dict[str, int]:
+        """Bytes the engine holds on its device: ``kv_pool_bytes`` (the
+        paged pools, int8 scales included), ``lora_pool_bytes`` (the
+        stacked adapter pools), ``param_bytes`` (the model's parameters
+        and buffers: a quantized model's codes and scales), and
+        ``peak_temp_bytes``, the card's peak of allocated bytes
+        (``torch.cuda.max_memory_allocated``, since the process started
+        or ``torch.cuda.reset_peak_memory_stats()`` was last called) less
+        what was allocated when the engine was built and less the pools'
+        storage (spare rows included): the high-water mark of the
+        temporaries of the warmup, the captured step's memory pool, the
+        page copies and sampling, when that peak was reached during the
+        engine's life; 0 on the CPU."""
+        held = {"kv_pool_bytes": int(self.kv.nbytes()),
+                "lora_pool_bytes": 0 if self.lora is None
+                else int(self.lora.nbytes()),
+                "param_bytes": sum(
+                    t.numel() * t.element_size() for t in itertools.chain(
+                        self.model.parameters(), self.model.buffers()))}
+        peak = 0
+        if self.device.type == "cuda":
+            pools = sum(r.numel() * r.element_size()
+                        for layer in self.kv.caches for r in layer.rows)
+            peak = max(0, torch.cuda.max_memory_allocated(self.device)
+                       - self._alloc_before - pools)
+        return {**held, "peak_temp_bytes": int(peak)}
 
     @property
     def captures(self) -> int:

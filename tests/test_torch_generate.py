@@ -335,9 +335,7 @@ def test_gpt_cache_past_positions_raises(pairs):
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("kw", [dict(num_beams=2),
                                 dict(decode_strategy="beam_search",
-                                     num_beams=3),
-                                dict(kv_cache_dtype="int8"),
-                                dict(kv_cache_dtype=torch.int8)])
+                                     num_beams=3)])
 def test_not_ported_options_raise(pairs, prompts, family, kw):
     _, tm = pairs[family]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -186,8 +186,6 @@ def test_gpt_paths_not_ported_raise(models_by_mode):
     ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.generate(ids, max_new_tokens=2, num_beams=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.generate(ids, max_new_tokens=2, kv_cache_dtype="int8")
 
 
 @pytest.mark.parametrize("op", ["gelu", "gelu_tanh", "layer_norm",

@@ -128,8 +128,6 @@ def test_paths_not_ported_raise():
         tm(ids, labels=ids)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.generate(ids, max_new_tokens=2, num_beams=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.generate(ids, max_new_tokens=2, kv_cache_dtype="int8")
 
 
 @pytest.mark.parametrize("fused_ops", ["on", "off"])

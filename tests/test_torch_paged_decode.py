@@ -120,9 +120,20 @@ def test_paged_decode_attend_matches_jax():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     changed = (tk.numpy() != kp).any(axis=(2, 3))
     assert changed.sum() == 3                          # the dead write dropped
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TIF.paged_decode_attend((tk, tv, tk, tv), *map(
-            torch.from_numpy, (q, nk, nv, tables, write_pos)))
+    # the int8 4-tuple takes the reference's composition: JAX's pools and
+    # output (tests/test_torch_kv8.py holds it in full)
+    k8, ks = TIF.quantize_kv(torch.from_numpy(kp))
+    v8, vs = TIF.quantize_kv(torch.from_numpy(vp))
+    pools = [k8, v8, ks, vs]
+    t8, tc8 = TIF.paged_decode_attend(
+        tuple(t.clone() for t in pools),
+        *map(torch.from_numpy, (q, nk, nv, tables, write_pos)))
+    j8, jc8 = JIF.paged_decode_attend(
+        tuple(jnp.asarray(t.numpy()) for t in pools),
+        *map(jnp.asarray, (q, nk, nv, tables, write_pos)))
+    np.testing.assert_allclose(t8.numpy(), np.asarray(j8), **F32_TOL)
+    for g, w in zip(tc8, jc8):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("branch", ["ragged", "decode", "prefill"])

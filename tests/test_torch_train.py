@@ -95,13 +95,17 @@ def test_adamw_composition_matches_jax(master):
     jdt = jnp.bfloat16 if master else jnp.float32
     tdt = torch.bfloat16 if master else torch.float32
     jp = {k: jnp.asarray(a, jdt) for k, a in params.items()}
-    tp = {k: torch.from_numpy(a).to(tdt) for k, a in params.items()}
+    # the port's parameters get their own memory: in f32 both
+    # ``jnp.asarray`` and ``torch.from_numpy(...).to(f32)`` may alias the
+    # numpy arrays, and the port's in-place update would then reach the
+    # JAX step's input before its asynchronous dispatch reads it
+    tp = {k: torch.tensor(a).to(tdt) for k, a in params.items()}
     js, ts = jopt.init(jp), topt.init(tp)
     japply = jax.jit(jopt.apply)
     for gr in grads:
         jp, js = japply({k: jnp.asarray(a, jdt) for k, a in gr.items()},
                         js, jp)
-        topt.apply({k: torch.from_numpy(a).to(tdt) for k, a in gr.items()},
+        topt.apply({k: torch.tensor(a).to(tdt) for k, a in gr.items()},
                    ts, tp)
     assert ts["step"] == int(js["step"]) == 2
     for slot in ("moment1", "moment2") + (("master",) if master else ()):
