@@ -104,6 +104,20 @@ Phases, each of which fails the run on its own (nothing is caught):
    pools drained, prefix hits and copy-on-write, hbm_stats'
    kv_pool_bytes (D + 4) / (2 D) = 0.515625 of the bf16 engine's; step,
    replay and host ms and tokens/s beside the bf16 engine's;
+   serve_front: the engine phase's model behind a new captured Engine,
+   FrontDoor and ServingServer with telemetry on (a JsonlSink): 8 greedy
+   POST /v1/completions from a gold and a free tenant (4 over SSE, 4
+   whole; the free tenant's token bucket answers 429 with Retry-After,
+   retried after its retry_after_s on the door's injected clock): one
+   capture throughout, streams equal to the same prompts' through
+   add_request/run under the near-tie rule, /metrics parsing and its
+   request, token and TTFT counts equal to the door's tallies, request
+   timelines summing to their wall time, an SLOCapture (1 ms TTFT
+   threshold) whose torch.profiler trace names the QKV, SwiGLU and
+   ragged kernels, a 503 after begin_drain() while 2 requests finish,
+   no KV block used after; client-side TTFT and time per token beside
+   the engine's serve.ttft_ms, and step, replay and host ms with
+   telemetry on and off in turns (on, off, off, on);
    then the engine phase's model, engine and traffic with Engine(weight_quant=
    "int8") and again "int4": the quantized kernel launched 225 times per
    step (7 projections x 32 layers + the LM head), ragged attention 32,
@@ -190,8 +204,8 @@ Phases, each of which fails the run on its own (nothing is caught):
 Prints each measurement as a JSON line (kernel, mlp_scratch, mlp_edges,
 qkv_edges, qkv_plan, int8_plan, int4_plan, mega_plan, flash_edges,
 quant_edges, mega_edges, bgmv_edges, ragged_edges, engine, spec_engine,
-preempt, kv8_engine, generate, kv8_generate, quant_engine, gpt_engine,
-gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
+preempt, kv8_engine, serve_front, generate, kv8_generate, quant_engine,
+gpt_engine, gpt_paged, cross_check, quant_cross_check, gpt_cross_check,
 generate_cross_check, spec_cross_check, kv8_cross_check, train,
 train_cross_check; smoke: the run's wall seconds from the build's start
 and each phase's), the card's name and power limit, a
@@ -210,11 +224,17 @@ before them).  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 
@@ -222,7 +242,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch import amp, optimizer, seed
+from paddle_tpu_torch import amp, observability as obs, optimizer, seed
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import PRESETS, causal_lm_loss, gpt, llama
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -255,8 +275,10 @@ from paddle_tpu_torch.ops.cuda import ragged_attention as RA
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.nn import functional as NF
 from paddle_tpu_torch.resilience import clear_faults, install_faults
-from paddle_tpu_torch.serving import (Engine, LoRAPool, PagedKVCache,
-                                      random_adapter)
+from paddle_tpu_torch.observability.trace import SLOCapture
+from paddle_tpu_torch.serving import (Engine, FrontDoor, LoRAPool,
+                                      PagedKVCache, ServingServer,
+                                      TenantPolicy, random_adapter)
 from paddle_tpu_torch.serving.graph import launch_delta
 
 # H100 SXM, NVIDIA's data sheet (dense): memory rate and peak by type
@@ -1824,6 +1846,362 @@ def kv8_engine_phase(model, bf16):
     res["phase_s"] = time.perf_counter() - t0
     log("kv8_engine " + json.dumps(res))
     del eng, eager
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- the serving front: telemetry, FrontDoor, HTTP ----------------------------
+
+# the serve_front phase: 8 greedy requests from two tenants (gold priority
+# 1, free priority 0 behind a token bucket that sheds its later requests
+# with a 429), 4 streamed over SSE and 4 whole, then 2 requests in flight
+# across a drain; prompts of 17-300 tokens, 16-32 new tokens
+FRONT = {"requests": 8, "drain": 2, "prompt": (17, 300), "new": (16, 32),
+         "free_burst_requests": 3}
+# the kernels of the llama2-7b bf16 step, by a substring of their names
+# in a torch.profiler trace (csrc/fused_norm_qkv.cu, fused_mlp.cu,
+# ragged_attention.cu)
+TRACE_KERNELS = {"fused_rms_rope_qkv": ("qkv_gemm_kernel",),
+                 "fused_swiglu_mlp": ("up16_kernel",),
+                 "ragged_paged_attention": ("ragged_tc_kernel",
+                                            "ragged_paged_attention_kernel")}
+PROM_SAMPLE = re.compile(
+    r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? -?[0-9.eE+-]+')
+
+
+def front_traffic(seed):
+    """[(tenant, prompt, max_new, stream)] of the serve_front phase: the
+    8 requests, then the 2 that cross the drain (gold, streamed)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = FRONT["prompt"]
+    out = []
+    for i in range(FRONT["requests"] + FRONT["drain"]):
+        tenant = "gold" if i % 2 == 0 or i >= FRONT["requests"] else "free"
+        stream = i % 4 < 2 or i >= FRONT["requests"]
+        out.append((tenant, rng.integers(0, 32000, size=int(
+            rng.integers(lo, hi + 1))), int(rng.integers(
+                FRONT["new"][0], FRONT["new"][1] + 1)), stream))
+    return out
+
+
+class FrontClient:
+    """One HTTP client of the serve_front phase: POSTs a completion
+    (SSE-streamed or whole), retrying a 429 after advancing the door's
+    injected clock by the answer's retry_after_s; keeps the token ids,
+    the statuses it saw and its wall times (send to first token, first
+    to last)."""
+
+    def __init__(self, addr, clock, lock):
+        self.addr, self.clock, self.lock = addr, clock, lock
+        self.statuses, self.retry_after = [], []
+        self.rid, self.tokens = None, []
+        self.ttft_ms = self.tpot_ms = self.sent = None
+        self.first = threading.Event()
+
+    def post(self, tenant, prompt, max_new, stream):
+        body = json.dumps({"prompt": [int(t) for t in prompt],
+                           "max_tokens": max_new, "stream": stream,
+                           "tenant": tenant})
+        while True:
+            conn = http.client.HTTPConnection(*self.addr, timeout=300)
+            self.sent = time.time()
+            t0 = time.perf_counter()
+            conn.request("POST", "/v1/completions", body,
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            self.statuses.append(r.status)
+            if r.status == 429:
+                err = json.loads(r.read())["error"]
+                assert r.getheader("Retry-After"), r.getheaders()
+                self.retry_after.append(err["retry_after_s"])
+                with self.lock:
+                    self.clock[0] += err["retry_after_s"]
+                conn.close()
+                continue
+            assert r.status == 200, (r.status, r.read())
+            if not stream:
+                out = json.loads(r.read())
+                self.ttft_ms = (time.perf_counter() - t0) * 1e3
+                self.rid = out["id"]
+                self.tokens = out["choices"][0]["token_ids"]
+                self.first.set()
+                conn.close()
+                return self
+            times = []
+            while True:
+                line = r.readline().decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                if line == "data: [DONE]":
+                    r.read()             # the closing chunk
+                    break
+                chunk = json.loads(line[6:])
+                times.append(time.perf_counter())
+                self.rid = chunk["id"]
+                self.tokens.append(chunk["choices"][0]["token_id"])
+                self.first.set()
+            conn.close()
+            self.ttft_ms = (times[0] - t0) * 1e3
+            if len(times) > 1:
+                self.tpot_ms = (times[-1] - times[0]) * 1e3 / (len(times) - 1)
+            return self
+
+
+def http_get(addr, path):
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn.request("GET", path)
+    r = conn.getresponse()
+    body = r.read().decode()
+    conn.close()
+    return r.status, body
+
+
+def prom_samples(body):
+    """{sample name with labels: value} of a Prometheus text body; every
+    line must be a # TYPE line or a sample."""
+    out = {}
+    for line in body.strip().splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        assert PROM_SAMPLE.fullmatch(line), line
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def trace_kernel_names(path):
+    """Which of the step's kernels a torch.profiler chrome trace names."""
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    return {k: any(s in n for n in names for s in subs)
+            for k, subs in TRACE_KERNELS.items()}
+
+
+def serve_front_phase(model):
+    """llama2-7b bf16 fused (the engine phase's model) behind FrontDoor and
+    ServingServer with telemetry on (a JsonlSink in a temporary
+    directory): 8 greedy POST /v1/completions from two tenants, gold
+    (priority 1) and free (priority 0, a token bucket that answers its
+    later requests 429 with Retry-After; the client advances the door's
+    injected clock by retry_after_s and retries), 4 streamed over SSE and
+    4 whole, sent at once.  Checks: captures stays 1 through the HTTP run,
+    the SLO capture and the turns; every stream equals the same prompt's
+    stream through add_request/run on the same engine (telemetry off)
+    under the near-tie rule; /metrics parses and its serve_requests,
+    serve_tokens and serve_ttft_ms count equal the door's admissions, the
+    tokens the clients received and the engine's emitted tokens; each
+    /v1/requests/<rid> timeline's phases sum to its wall time; an
+    SLOCapture with a 1 ms TTFT threshold arms once the drain's requests
+    add a ninth TTFT and its torch.profiler trace names the QKV, SwiGLU
+    and ragged-attention kernels; after begin_drain() a new POST gets
+    503, the 2 requests in flight finish and no KV block stays used.
+    Reports client-side TTFT (split into send-to-submit, the engine's
+    TTFT and delivery) and time per token beside the engine's
+    serve.ttft_ms and serve.step_ms, and the captured step ms, replay ms
+    and host ms outside the replay with telemetry on and off in turns
+    (on, off, off, on; fresh 8-request windows of timed_window)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="serve_front_")
+    try:
+        return _serve_front(model, tmp, t0)
+    finally:
+        obs.disable()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _serve_front(model, tmp, t0):
+    # armed only by the drain's requests (one TTFT past the 8), so the
+    # profiler's start and export stay out of the 8-request timings
+    cap = SLOCapture(1.0, os.path.join(tmp, "slo"), window_steps=1,
+                     windows=1, capture_steps=4,
+                     min_samples=FRONT["requests"] + 1)
+    eng = Engine(model, max_batch=8, max_seq_len=512, page_size=16,
+                 slo_capture=cap).warmup()
+    assert (eng.captures, eng.replays) == (1, 0)
+    traffic = front_traffic(5)
+    # the reference: the same prompts through add_request/run, telemetry
+    # off (the SLO capture reads no registry then), margins recorded
+    eng.margins = {}
+    ref_ids = [eng.add_request(p, max_new_tokens=n)
+               for _, p, n, _ in traffic]
+    ref = eng.run()
+    ref_margins = {i: eng.margins[r] for i, r in enumerate(ref_ids)}
+    eng.margins = None
+    assert not cap.capturing and not cap.captures
+    assert eng.kv_blocks_used == 0
+
+    jsonl = os.path.join(tmp, "serve_front.jsonl")
+    obs.enable(jsonl_path=jsonl, crash_hooks=False)
+    clock, lock = [0.0], threading.Lock()
+    # the free tenant's bucket holds its cheapest requests' cost and
+    # refills at 1 token/s of the injected clock: its later requests shed
+    costs = sorted(len(p) + n for t, p, n, _ in traffic[:FRONT["requests"]]
+                   if t == "free")
+    door = FrontDoor(eng, policies={
+        "gold": TenantPolicy(priority=1),
+        "free": TenantPolicy(priority=0, rate_tokens_per_s=1.0,
+                             burst_tokens=float(sum(
+                                 costs[:FRONT["free_burst_requests"]])))},
+        clock=lambda: clock[0])
+    srv = ServingServer(door, poll_s=0.0005)
+    addr = srv.start()
+    tokens0 = eng.tokens_emitted
+    try:
+        n = FRONT["requests"]
+        clients = [FrontClient(addr, clock, lock) for _ in traffic]
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=c.post, args=traffic[i],
+                                    daemon=True)
+                   for i, c in enumerate(clients[:n])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        http_wall = time.perf_counter() - t1
+        status, body = http_get(addr, "/metrics")
+        assert status == 200, status
+        samples = prom_samples(body)
+        ttft = obs.get_registry().get("serve.ttft_ms")
+        ttft_p50, ttft_snap = ttft.percentile(50), ttft.snapshot()
+        step_ms = obs.get_registry().get("serve.step_ms").snapshot()
+        timelines = {}
+        for i, c in enumerate(clients[:n]):
+            status, tl = http_get(addr, f"/v1/requests/{c.rid}")
+            assert status == 200, (status, tl)
+            timelines[i] = json.loads(tl)
+        # the drain: two streamed requests in flight, then begin_drain
+        drains = [threading.Thread(target=c.post, args=traffic[i],
+                                   daemon=True)
+                  for i, c in enumerate(clients) if i >= n]
+        for t in drains:
+            t.start()
+        for c in clients[n:]:
+            assert c.first.wait(timeout=300)
+        srv.begin_drain()
+        late = http.client.HTTPConnection(*addr, timeout=60)
+        late.request("POST", "/v1/completions", json.dumps(
+            {"prompt": [1, 2, 3], "max_tokens": 2, "tenant": "gold"}),
+            {"Content-Type": "application/json"})
+        r = late.getresponse()
+        drain_status, drain_retry = r.status, r.getheader("Retry-After")
+        drain_type = json.loads(r.read())["error"]["type"]
+        late.close()
+        for t in drains:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        assert srv.wait_drained(timeout=300)
+    finally:
+        srv.close()
+    assert (drain_status, drain_type) == (503, "draining"), drain_status
+    assert drain_retry, "503 without Retry-After"
+    assert eng.kv_blocks_used == 0, eng.kv_blocks_used
+    assert eng.captures == 1, eng.captures
+    assert len(cap.captures) == 1 and not cap.capturing, cap.captures
+    statuses = [s for c in clients for s in c.statuses]
+    assert statuses.count(429) >= 1, statuses
+    assert all(s in (200, 429) for s in statuses), statuses
+    # streams against the reference, in traffic order
+    exempt = {}
+    for i, c in enumerate(clients):
+        verdict = near_tie_equal(ref[ref_ids[i]], c.tokens, ref_margins[i])
+        if verdict == "exempt":
+            j = next(k for k, (a, b) in enumerate(zip(ref[ref_ids[i]],
+                                                      c.tokens)) if a != b)
+            exempt[i] = {"step": j, "margin": ref_margins[i][j]}
+    # /metrics against the door's own tallies (8 admitted requests, their
+    # tokens as the clients received them and as the engine emitted them)
+    got_tokens = sum(len(c.tokens) for c in clients[:n])
+    reg = obs.get_registry()
+    metrics = {"serve_requests": samples["serve_requests"],
+               "serve_tokens": samples["serve_tokens"],
+               "serve_ttft_ms_count": samples["serve_ttft_ms_count"]}
+    assert metrics == {"serve_requests": n, "serve_tokens": got_tokens,
+                       "serve_ttft_ms_count": n}, (metrics, got_tokens)
+    assert sum(len(c.tokens) for c in clients) == \
+        eng.tokens_emitted - tokens0 == reg.get("serve.tokens").snapshot()
+    sums = []
+    for i, tl in timelines.items():
+        s = tl["summary"]
+        assert abs(s["queue_ms"] + s["prefill_ms"] + s["xfer_ms"]
+                   + s["decode_ms"] - s["wall_ms"]) < 1e-6, s
+        ph = [e["phase"] for e in tl["events"]]
+        for once in ("submit", "first_token", "retire"):
+            assert ph.count(once) == 1, (i, ph)
+        sums.append(s["wall_ms"])
+    # the SLO capture: armed during the drain, a torch.profiler trace of
+    # the replayed step that names the kernels
+    files = sorted(os.listdir(cap.captures[0]))
+    assert files == ["torch_trace_0.json"], files
+    named = trace_kernel_names(os.path.join(cap.captures[0], files[0]))
+    assert all(named.values()), named
+    client_ttft = [c.ttft_ms for i, c in enumerate(clients[:n])
+                   if traffic[i][3]]
+    client_tpot = [c.tpot_ms for i, c in enumerate(clients[:n])
+                   if traffic[i][3] and c.tpot_ms is not None]
+    # where a streamed request's client-side TTFT goes: send to door
+    # submit (the trace's wall anchor, 1 ms resolution), door submit to
+    # first token (the engine's TTFT, the timeline), first token to the
+    # client's read of its SSE chunk
+    split = []
+    for i, c in enumerate(clients[:n]):
+        if traffic[i][3]:
+            tl = timelines[i]
+            first = next(e["t_ms"] for e in tl["events"]
+                         if e["phase"] == "first_token")
+            pre = (tl["t0"] - c.sent) * 1e3
+            split.append({"send_to_submit_ms": pre, "engine_ttft_ms": first,
+                          "delivery_ms": c.ttft_ms - pre - first})
+    obs.disable()
+    with open(jsonl) as f:
+        slo_events = [e["state"] for e in map(json.loads, f)
+                      if e.get("event") == "serve_slo_capture"]
+    # telemetry on (a fresh session, in-memory sink) and off in turns on
+    # fresh greedy windows
+    turns = []
+    for i, on in enumerate((True, False, False, True)):
+        if on:
+            obs.enable(sinks=[obs.InMemorySink()], crash_hooks=False)
+        row = timed_window(eng, 40 + i)
+        obs.disable()
+        turns.append({"telemetry": on, **row})
+    assert eng.captures == 1 and eng.kv_blocks_used == 0
+    mean = lambda on, key: statistics.mean(r[key] for r in turns
+                                           if r["telemetry"] == on)
+    res = {
+        "wall_s": time.perf_counter() - t0, "http_wall_s": http_wall,
+        "captures": eng.captures, "replays": eng.replays,
+        "statuses": statuses,
+        "retry_after_s": [x for c in clients for x in c.retry_after],
+        "streams": {"requests": len(clients),
+                    "equal": len(clients) - len(exempt), "exempt": exempt},
+        "metrics": metrics, "client_tokens": got_tokens,
+        "timelines_wall_ms": sums,
+        "slo_capture": {"events": slo_events, "kernels_named": named,
+                        "trace_mb": os.path.getsize(os.path.join(
+                            cap.captures[0], files[0])) / 2**20},
+        "drain": {"status": drain_status, "retry_after": drain_retry,
+                  "kv_blocks_used": eng.kv_blocks_used},
+        "client_ttft_ms": client_ttft,
+        "client_ttft_ms_p50": statistics.median(client_ttft),
+        "client_tpot_ms": client_tpot,
+        "client_tpot_ms_p50": statistics.median(client_tpot),
+        "engine_ttft_ms_p50": ttft_p50, "engine_ttft_ms": ttft_snap,
+        "client_ttft_split": split,
+        "http_window_step_ms": step_ms,
+        "turns": turns,
+        "captured_step_ms": {"on": mean(True, "step_ms"),
+                             "off": mean(False, "step_ms")},
+        "replay_device_ms": {"on": mean(True, "replay_device_ms"),
+                             "off": mean(False, "replay_device_ms")},
+        "host_ms_outside_replay": {
+            "on": mean(True, "host_ms_outside_replay"),
+            "off": mean(False, "host_ms_outside_replay")}}
+    log("serve_front " + json.dumps(res))
+    del eng
     torch.cuda.empty_cache()
     return res
 
@@ -3706,6 +4084,7 @@ def main() -> int:
     del engines
     torch.cuda.empty_cache()
     run("kv8_engine", kv8_engine_phase, model, engine)
+    run("serve_front", serve_front_phase, model)
     del model
     torch.cuda.empty_cache()
     gen, gen_model, gen_ids = run("generate", generate_phase)

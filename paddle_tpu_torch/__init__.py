@@ -15,8 +15,10 @@ Ported so far: Llama and GPT serving through the paged ragged
 their dense-cache ``generate()`` (the decode step captured once into a
 CUDA graph on the card; :func:`seed` resets its random stream), and
 Llama training through ``jit.TrainStep`` with ``optimizer.AdamW``,
-``nn.ClipGradByGlobalNorm`` and ``amp.decorate`` at O2 (ROADMAP.md lists
-what is still to port).
+``nn.ClipGradByGlobalNorm`` and ``amp.decorate`` at O2; the serving
+front (``serving.FrontDoor``, ``serving.ServingServer``) and its
+telemetry (``observability``, ``profiler``) (ROADMAP.md lists what is
+still to port).
 """
 
 from .core.device import resolve_device

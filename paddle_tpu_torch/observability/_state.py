@@ -1,10 +1,10 @@
 """Hot-path hook containers — the whole disabled-telemetry surface (a copy
 of ``paddle_tpu/observability/_state.py``).
 
-The port has no telemetry yet (ROADMAP.md): nothing in it writes these
-containers, and the one reader, ``resilience.faults._emit_telemetry``,
-returns at ``EMIT[0] is None``.  The registry, spans and request trace
-that fill them come with the tracing slice.
+``observability.enable()`` / ``disable()`` are the only writers.  The
+port installs no step monitor, collective hook or compiled-artifact
+ledger (``observability.NOT_PORTED``): ``MONITOR``, ``COLLECTIVE`` and
+``LEDGER`` stay ``None`` in it.
 
 Mirrors ``distributed/debug.py``'s zero-overhead contract: a producer on
 a hot path does ONE falsy check against a module-level container::
@@ -15,8 +15,7 @@ a hot path does ONE falsy check against a module-level container::
 
 With telemetry disabled (the default) every container holds ``None`` and
 the check costs ~0.2 µs — no lock, no dict, no registry, no import of
-anything heavier than this (stdlib-free) module.  In the reference ``enable()`` /
-``disable()`` are the only writers.
+anything heavier than this (stdlib-free) module.
 
 Containers are single-element lists (not bare globals) so hot modules
 can bind the list object once at import time and still observe

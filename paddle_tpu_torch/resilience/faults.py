@@ -217,9 +217,12 @@ def _emit_telemetry(event, counters=()):
     emit = _obs_state.EMIT[0]
     if emit is None:
         return
-    # the port has no metrics registry yet (ROADMAP.md): ``counters`` are
-    # the reference's registry names, dropped until the tracing slice
     try:
+        from .. import observability as obs
+        reg = obs.get_registry()
+        if reg is not None:
+            for name in counters:
+                reg.counter(name).inc()
         emit(event)
     except Exception:
         pass

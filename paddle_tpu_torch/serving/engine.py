@@ -73,14 +73,27 @@ captured step; the ragged-attention kernel and the megakernel make no
 launch there.  Prefix sharing, copy-on-write and preemption move the
 scales with the values.  :meth:`hbm_stats` counts the card's bytes.
 
-Not ported yet (ROADMAP.md): meshes, disaggregated roles, telemetry and
-``slo_capture``.
+Telemetry, as in the reference (``observability``): with
+``observability.enable()`` the engine feeds the ``serve.*`` counters,
+gauges and histograms, the ``serve_*`` events, the ``serve.warmup`` /
+``serve.step`` / ``serve.step.finish`` spans and each request's trace
+(submit, admit, prefill chunks, first token, preempt, restore, isolate,
+retire); ``slo_capture`` arms a ``torch.profiler`` window on a TTFT
+breach.  Every site is host code around the replay, reading the
+scheduler's numbers and the tokens the step already copied to the host:
+no site adds a device sync, and with telemetry off each costs one falsy
+check.  Not ported (ROADMAP.md, queue 1 item 11): the
+``serve.roofline.*`` and ``serve.dispatches_per_step`` gauges, which read
+the reference's compiled-artifact ledger.
+
+Not ported yet (ROADMAP.md): meshes and disaggregated roles.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import time
 import traceback
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -88,8 +101,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..core.device import resolve_device
 from ..core.random import fold_in
+from ..observability import _state as _obs_state
+from ..observability.spans import span
 from ..ops import cuda as _kernels
 from ..resilience import _state as _rs_state
 from ..resilience.retry import RetryPolicy
@@ -231,6 +247,10 @@ class Engine:
     ``np.int8``, ``torch.int8``) for the quantized pools, which compose
     with every option above.
 
+    ``slo_capture``: an :class:`observability.SLOCapture`; every non-empty
+    step calls its ``on_step`` (host-side counters until a TTFT breach
+    arms its bounded ``torch.profiler`` window over the next steps).
+
     ``margins``: set it to a dict to record, per request id, the top-2
     logit margin of every emitted token (the near-tie rule of the
     token-identity checks; under ``spec_decode`` the margin at the span
@@ -249,8 +269,8 @@ class Engine:
                  retry: Optional[RetryPolicy] = None,
                  weight_quant: Optional[str] = None,
                  spec_decode: bool = False, draft_depth: int = 4,
-                 lora=None, kv_cache_dtype=None, device=None,
-                 _eager_step: bool = False):
+                 lora=None, kv_cache_dtype=None, slo_capture=None,
+                 device=None, _eager_step: bool = False):
         self.device = resolve_device(device)
         if not _paged_supported(model):
             raise NotImplementedError(
@@ -373,6 +393,7 @@ class Engine:
         self.steps = 0               # non-empty steps dispatched
         self.margins: Optional[Dict[str, List[float]]] = None
         self.lora = lora
+        self._slo_capture = slo_capture
         self._last_launches: Optional[Dict[str, int]] = None
         # the step's static inputs and output ((B, V) logits, (B, C, V)
         # under spec_decode); captured on the card unless built eager (a
@@ -439,19 +460,26 @@ class Engine:
         graph -- and run the CoW copy once on padding.  Nothing touches
         the pools or the allocator.  Later calls only repeat the CoW
         copy: the step is captured once."""
-        b, mb, c = self.max_batch, self.max_blocks_per_seq, \
-            self.prefill_chunk
-        zeros_i = np.zeros((b,), np.int32)
-        self._graph.load({"tokens": np.zeros((b, c), np.int32),
-                          "tables": np.full((b, mb), self.kv.oob_block,
-                                            np.int32),
-                          "starts": zeros_i, "lens": zeros_i,
-                          "adapters": zeros_i})
-        self._graph.prepare()
-        pad = self._tensor(np.full((b,), self.kv.oob_block, np.int32))
-        self._cow_fn(pad, pad)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("serve.warmup"):
+            b, mb, c = self.max_batch, self.max_blocks_per_seq, \
+                self.prefill_chunk
+            zeros_i = np.zeros((b,), np.int32)
+            self._graph.load({"tokens": np.zeros((b, c), np.int32),
+                              "tables": np.full((b, mb), self.kv.oob_block,
+                                                np.int32),
+                              "starts": zeros_i, "lens": zeros_i,
+                              "adapters": zeros_i})
+            self._graph.prepare()
+            pad = self._tensor(np.full((b,), self.kv.oob_block, np.int32))
+            self._cow_fn(pad, pad)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        reg = obs.get_registry()
+        if reg is not None:
+            # the reference's post-warmup gauge block (its roofline and
+            # dispatch gauges read a compiled-artifact ledger: not ported)
+            for k, v in self.hbm_stats().items():
+                reg.gauge(f"serve.hbm.{k}").set(v)
         return self
 
     # -- request lifecycle -------------------------------------------------
@@ -498,6 +526,21 @@ class Engine:
             if adapter is not None:
                 self.lora.release(adapter, req.request_id)
             raise
+        tr = _obs_state.TRACE[0]
+        if tr is not None:
+            # get-or-create: a door-submitted request already began its
+            # trace at door submit (queue time there is queue time here)
+            req.trace_id = tr.begin(
+                req.request_id, tenant=req.tenant, trace_id=req.trace_id,
+                prompt_len=int(req.prompt_ids.size),
+                max_new=req.max_new_tokens)
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.requests").inc()
+            reg.gauge("serve.queue_depth").set(self.scheduler.queue_depth())
+            if adapter is not None:
+                reg.counter(
+                    f"serve.lora.adapter[{adapter}].requests").inc()
         return req.request_id
 
     def _admission_checks(self, req: Request) -> None:
@@ -613,11 +656,14 @@ class Engine:
 
     # -- preemption / restore / fault isolation ----------------------------
 
-    def preempt(self, request_id: str, *, requeue_head: bool = False) -> bool:
+    def preempt(self, request_id: str, *, requeue_head: bool = False,
+                reason: str = "preempted") -> bool:
         """Swap a RUNNING request's KV pages to host memory, free its
         blocks and slot, and requeue it for transparent restoration (at
         the queue head with ``requeue_head``) -- the alternative to
-        rejecting new work when the pool is tight.
+        rejecting new work when the pool is tight.  ``reason`` rides the
+        ``serve_preempt`` event and the request's trace (the front door
+        passes ``"pool_pressure"``).
 
         Returns False when the request is not in a slot (waiting, already
         preempted, finished, or unknown).  The restored request resumes
@@ -627,10 +673,11 @@ class Engine:
         st = self._states.get(request_id)
         if st is None or st.finished or st.slot is None:
             return False
-        self._preempt_state(st, head=requeue_head)
+        self._preempt_state(st, head=requeue_head, reason=reason)
         return True
 
-    def _preempt_state(self, st: RequestState, head: bool) -> None:
+    def _preempt_state(self, st: RequestState, head: bool,
+                       reason: str) -> None:
         pages = -(-st.kv_len // self.page_size)
         host = None
         if pages:
@@ -644,6 +691,19 @@ class Engine:
         st.swapped = (pages, host)
         st.preempts += 1
         self.scheduler.requeue(st, head=head)
+        tr = _obs_state.TRACE[0]
+        if tr is not None:
+            tr.transition(st.request.request_id, "queue", event="preempt",
+                          reason=reason, pages=pages, kv_len=st.kv_len)
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.preemptions").inc()
+            if pages:
+                reg.counter("serve.swapped_pages").inc(pages)
+        obs.emit_event("serve_preempt", id=st.request.request_id,
+                       tenant=st.request.tenant, pages=pages,
+                       kv_len=st.kv_len, reason=reason,
+                       preempts=st.preempts)
 
     def _restore(self, st: RequestState) -> None:
         """Write a freshly re-admitted request's host payload into its new
@@ -654,6 +714,16 @@ class Engine:
             self._retry.run(self._swap.swap_in, ids, host,
                             site="serve.swap")
         st.swapped = None
+        tr = _obs_state.TRACE[0]
+        if tr is not None:
+            tr.point(st.request.request_id, "restore", pages=pages,
+                     kv_len=st.kv_len)
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.restores").inc()
+        obs.emit_event("serve_restore", id=st.request.request_id,
+                       tenant=st.request.tenant, pages=pages,
+                       kv_len=st.kv_len)
 
     def _isolate(self, st: RequestState, exc: Exception) -> None:
         """Confine a failing request to ITS slot: the captured step and
@@ -662,11 +732,21 @@ class Engine:
         Greedy outputs stay token-identical because the caller rewound
         the host bookkeeping to the pre-span snapshot and re-running a
         span is idempotent (same values, same positions)."""
+        rid = st.request.request_id
         warnings.warn(
-            f"request {st.request.request_id!r} failed host-side and was "
+            f"request {rid!r} failed host-side and was "
             f"isolated (preempt + re-admit; {type(exc).__name__}: {exc})",
             RuntimeWarning, stacklevel=3)
-        self._preempt_state(st, head=True)
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.isolated_failures").inc()
+        obs.emit_event("serve_isolated_failure", id=rid,
+                       tenant=st.request.tenant,
+                       exc=type(exc).__name__, message=str(exc)[:200])
+        tr = _obs_state.TRACE[0]
+        if tr is not None:
+            tr.point(rid, "isolated", exc=type(exc).__name__)
+        self._preempt_state(st, head=True, reason="isolated_failure")
 
     # -- the loop ----------------------------------------------------------
 
@@ -680,11 +760,27 @@ class Engine:
             if fi is not None:
                 try:
                     fi("serve.admit")
-                except Exception:  # noqa: BLE001 -- retried next step
+                except Exception as e:  # noqa: BLE001 -- retried next step
+                    reg = obs.get_registry()
+                    if reg is not None:
+                        reg.counter("serve.isolated_failures").inc()
+                    obs.emit_event(
+                        "serve_isolated_failure", id=None, tenant=None,
+                        exc=type(e).__name__, message=str(e)[:200],
+                        site="serve.admit")
                     break
             st = self.scheduler.admit_next()
             if st is None:
                 break
+            tr = _obs_state.TRACE[0]
+            if tr is not None:
+                # queue->slot transition: closes the queue-wait segment
+                # (first admission AND each post-preempt re-admission)
+                tr.transition(
+                    st.request.request_id,
+                    "prefill" if st.prefilling else "decode",
+                    event="admit", slot=st.slot, kv_len=st.kv_len,
+                    cached_tokens=st.cached_tokens)
             if st.swapped is not None:
                 self._restore(st)
 
@@ -733,6 +829,10 @@ class Engine:
                 src[j], dst[j] = s_, d_
             self._cow_fn(self._tensor(src), self._tensor(dst))
         self._cow_copies += len(copies)
+        if copies:
+            reg = obs.get_registry()
+            if reg is not None:
+                reg.counter("serve.cow_copies").inc(len(copies))
         return plan
 
     def _register_prefix(self, st: RequestState) -> None:
@@ -775,6 +875,13 @@ class Engine:
                 # bounded proposer retention: the n-gram index dies with
                 # the request (it rebuilds lazily if the id is reused)
                 self.spec.drop(req.request_id)
+            tr = _obs_state.TRACE[0]
+            if tr is not None:
+                spec_kw = {} if self.spec is None else {
+                    "spec_proposed": st.spec_proposed,
+                    "spec_accepted": st.spec_accepted}
+                tr.retire(req.request_id, reason=st.finish_reason,
+                          tokens=len(st.output_ids), **spec_kw)
             if self._drain_capture is not None:
                 # BEFORE the eviction below: more requests than
                 # keep_finished may retire in one step
@@ -783,6 +890,14 @@ class Engine:
             self._finished_order.append(req.request_id)
             while len(self._finished_order) > self.keep_finished:
                 self._states.pop(self._finished_order.popleft(), None)
+            if _obs_state.EMIT[0] is not None:
+                reg = obs.get_registry()
+                if reg is not None:
+                    reg.counter("serve.finished").inc()
+                obs.emit_event(
+                    "serve_finish", id=req.request_id,
+                    reason=st.finish_reason, tokens=len(st.output_ids),
+                    ms=round((time.perf_counter() - st.submit_t) * 1e3, 3))
         else:
             st.pending_token = token
         events.append(TokenEvent(req.request_id, token, text, st.finished,
@@ -822,8 +937,15 @@ class Engine:
                 if fi is not None:
                     fi("serve.spec")
                 st.draft = self.spec.propose(st, cap)
-            except Exception:  # noqa: BLE001 -- degrade, never isolate
+            except Exception as e:  # noqa: BLE001 -- degrade, never isolate
                 self.spec.errors += 1
+                reg = obs.get_registry()
+                if reg is not None:
+                    reg.counter("serve.spec.draft_errors").inc()
+                obs.emit_event("serve_spec_error",
+                               id=st.request.request_id,
+                               exc=type(e).__name__,
+                               message=str(e)[:200])
                 st.draft = []
 
     def step(self) -> List[TokenEvent]:
@@ -836,55 +958,118 @@ class Engine:
         prefill/decode post-processing, or an injected ``serve.*`` fault)
         never tears down the step or the other slots: the victim is
         rewound to its pre-span snapshot, preempted to host memory and
-        re-admitted; everyone else's events are delivered normally."""
-        self._admit_all()
-        if self.spec is not None:
-            self._propose_drafts()
-        plan = self.scheduler.plan_spans(self.prefill_chunk,
-                                         self.prefill_token_budget)
+        re-admitted; everyone else's events are delivered normally.
+
+        With telemetry on, a non-empty step feeds the ``serve.*`` metrics
+        from host numbers and the ``serve_step`` event, and ticks the
+        ``slo_capture``."""
+        t0 = time.perf_counter()
         events: List[TokenEvent] = []
-        if not plan:
-            return events
-        if not self._graph.ready:
-            self.warmup()            # the one capture, as the reference's
-        plan = self._run_cow(plan)
-        if not plan:
-            return events
-        spec = self.spec is not None
-        (tokens, tables, starts, lens, temps, seeds, emit,
-         adapters) = self.scheduler.span_arrays(plan, self.prefill_chunk,
-                                                spec_emit=spec)
-        self._graph.load({"tokens": tokens, "tables": tables,
-                          "starts": starts, "lens": lens,
-                          "adapters": adapters})
-        before = _kernels.counts(self.device.type)
-        logits = self._graph.run()
-        after = _kernels.counts(self.device.type)
-        self._last_launches = {k: after[k] - before[k] for k in after}
-        if spec:
-            # a temperature slot draws only where the host consumes: its
-            # decode positions, or a completing prefill's last position
-            draws = {i: [n - 1] if is_prefill else range(n)
-                     for i, st, n, is_prefill in plan
-                     if temps[i] > 0.0 and not (
-                         is_prefill and st.kv_len + n
-                         < st.request.prompt_ids.size)}
-            nxt = _sample_span(logits, temps, self._key, seeds, emit, draws)
-        else:
-            nxt = _sample(logits, temps, self._key, seeds,
-                          emit).cpu().numpy()
-        margins = None
-        if self.margins is not None:
-            top2 = torch.topk(logits.float(), 2, dim=-1).values
-            margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-        self.steps += 1
-        self._finish_events(plan, nxt, margins, events)
+        with span("serve.step", emit=False):
+            self._admit_all()
+            if self.spec is not None:
+                self._propose_drafts()
+            plan = self.scheduler.plan_spans(self.prefill_chunk,
+                                             self.prefill_token_budget)
+            if not plan:
+                return events
+            if not self._graph.ready:
+                self.warmup()        # the one capture, as the reference's
+            plan = self._run_cow(plan)
+            if not plan:
+                return events
+            spec = self.spec is not None
+            (tokens, tables, starts, lens, temps, seeds, emit,
+             adapters) = self.scheduler.span_arrays(
+                plan, self.prefill_chunk, spec_emit=spec)
+            self._graph.load({"tokens": tokens, "tables": tables,
+                              "starts": starts, "lens": lens,
+                              "adapters": adapters})
+            before = _kernels.counts(self.device.type)
+            logits = self._graph.run()
+            after = _kernels.counts(self.device.type)
+            self._last_launches = {k: after[k] - before[k] for k in after}
+        # own span, as the reference's: the host's wait for the replay
+        # (at sampling) and the post-processing
+        with span("serve.step.finish", emit=False):
+            if spec:
+                # a temperature slot draws only where the host consumes:
+                # its decode positions, or a completing prefill's last one
+                draws = {i: [n - 1] if is_prefill else range(n)
+                         for i, st, n, is_prefill in plan
+                         if temps[i] > 0.0 and not (
+                             is_prefill and st.kv_len + n
+                             < st.request.prompt_ids.size)}
+                nxt = _sample_span(logits, temps, self._key, seeds, emit,
+                                   draws)
+            else:
+                nxt = _sample(logits, temps, self._key, seeds,
+                              emit).cpu().numpy()
+            margins = None
+            if self.margins is not None:
+                top2 = torch.topk(logits.float(), 2, dim=-1).values
+                margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            self.steps += 1
+            self._finish_events(plan, nxt, margins, events)
         self.tokens_emitted += len(events)
+        if _obs_state.EMIT[0] is not None or self._slo_capture is not None:
+            self._step_telemetry(plan, events, time.perf_counter() - t0)
         return events
+
+    def _step_telemetry(self, plan, events: List[TokenEvent],
+                        dt: float) -> None:
+        """The reference's per-step metrics, event and SLO tick of a
+        non-empty step: Python numbers from the scheduler and the events,
+        never a tensor."""
+        reg = obs.get_registry()
+        n_tok = len(events)
+        live_tokens = sum(n for _, _, n, _ in plan)
+        if reg is not None:
+            reg.counter("serve.tokens").inc(n_tok)
+            if self.lora is not None:
+                # per-adapter token accounting AFTER isolation filtered
+                # the events, one inc per adapter
+                per_ad: Dict[str, int] = {}
+                for ev in events:
+                    est = self._states.get(ev.request_id)
+                    ad = est.request.adapter if est is not None else None
+                    if ad is not None:
+                        per_ad[ad] = per_ad.get(ad, 0) + 1
+                for ad, n in per_ad.items():
+                    reg.counter(
+                        f"serve.lora.adapter[{ad}].tokens").inc(n)
+            reg.gauge("serve.tok_s").set(round(n_tok / max(dt, 1e-9), 1))
+            reg.gauge("serve.queue_depth").set(self.scheduler.queue_depth())
+            reg.gauge("serve.kv_blocks_used").set(
+                self.kv.allocator.used_blocks)
+            reg.gauge("serve.active_requests").set(
+                len(self.scheduler.active()))
+            reg.histogram("serve.step_ms").observe(dt * 1e3)
+            # how full the ragged step ran: real span tokens over the
+            # (B, C) capacity
+            reg.histogram("serve.ragged_occupancy").observe(
+                live_tokens / (self.max_batch * self.prefill_chunk))
+            reg.gauge("serve.cached_blocks").set(
+                self.kv.allocator.cached_blocks)
+            # pages still physically shared: admission hits minus the
+            # ones CoW has since privatized
+            reg.gauge("serve.shared_blocks").set(
+                sum(s.num_shared - s.num_cowed
+                    for _, s in self.scheduler.active()))
+        obs.emit_event("serve_step", ms=round(dt * 1e3, 3),
+                       tokens=n_tok, span_tokens=live_tokens,
+                       active=len(self.scheduler.active()),
+                       queue=self.scheduler.queue_depth(),
+                       kv_blocks_used=self.kv.allocator.used_blocks)
+        cap = self._slo_capture
+        if cap is not None:
+            # host-side counters only, until a breach arms the profiler
+            cap.on_step()
 
     def _finish_events(self, plan, nxt, margins,
                        events: List[TokenEvent]) -> None:
         fi = _rs_state.FAULTS[0]
+        tr = _obs_state.TRACE[0]
         for i, st, n, is_prefill in plan:
             rid = st.request.request_id
             # pre-span snapshot: isolation rewinds to here, and re-running
@@ -905,16 +1090,33 @@ class Engine:
                     self._consume_decode(st, i, n, nxt, margins, events)
                     continue
                 st.kv_len += n
+                if tr is not None:
+                    tr.point(st.request.request_id, "prefill_chunk",
+                             tokens=n, kv_len=st.kv_len)
                 if st.prefilling:
                     continue         # mid-prefill: sample discarded
                 # prompt complete: this sample is the request's first
-                # token; a speculative step samples every span position,
-                # and the prompt's last position carries it
+                # token (TTFT stops here: the host holds it); a
+                # speculative step samples every span position, and the
+                # prompt's last position carries it
                 pos = (i,) if nxt.ndim == 1 else (i, n - 1)
+                tok = int(nxt[pos])
+                margin = None if margins is None else float(margins[pos])
                 self._register_prefix(st)
-                self._emit(st, int(nxt[pos]),
-                           None if margins is None else float(margins[pos]),
-                           events)
+                if tr is not None:
+                    # prefill->decode; a re-completion after isolation
+                    # keeps `first_token` exactly-once per request
+                    tr.transition(
+                        st.request.request_id, "decode",
+                        event="first_token" if st.first_token_t is None
+                        else "re_prefilled")
+                if st.first_token_t is not None:
+                    self._emit(st, tok, margin, events)
+                    continue
+                st.first_token_t = time.perf_counter()
+                if _obs_state.EMIT[0] is not None:
+                    self._first_token_telemetry(st)
+                self._emit(st, tok, margin, events)
             except Exception as e:  # noqa: BLE001 -- isolate the request
                 st.kv_len, st.pending_token = snap[0], snap[1]
                 del st.output_ids[snap[2]:]
@@ -928,6 +1130,29 @@ class Engine:
                 # delivered from this step
                 events[:] = [ev for ev in events if ev.request_id != rid]
                 self._isolate(st, e)
+
+    def _first_token_telemetry(self, st: RequestState) -> None:
+        """TTFT (global and per tenant), prefix hit/miss pages and the
+        ``serve_request`` event, once per request."""
+        req = st.request
+        reg = obs.get_registry()
+        if reg is not None:
+            ttft = (st.first_token_t - st.submit_t) * 1e3
+            reg.histogram("serve.ttft_ms").observe(ttft)
+            if req.tenant:
+                # the per-tenant aggregate the FrontDoor SLO policy reads
+                reg.histogram(
+                    f"serve.tenant[{req.tenant}].ttft_ms").observe(ttft)
+            if st.num_shared:
+                reg.counter("serve.prefix_hits").inc(st.num_shared)
+            misses = len(st.page_keys) - st.num_shared
+            if misses:
+                reg.counter("serve.prefix_misses").inc(misses)
+        obs.emit_event(
+            "serve_request", id=req.request_id, tenant=req.tenant,
+            adapter=req.adapter, prompt_len=int(req.prompt_ids.size),
+            slot=st.slot, blocks=len(st.blocks),
+            cached_tokens=st.cached_tokens)
 
     def _consume_decode(self, st: RequestState, i: int, n: int, nxt,
                         margins, events: List[TokenEvent]) -> None:
@@ -982,6 +1207,12 @@ class Engine:
             sp.verifies += 1
             sp.proposed += k
             sp.accepted += acc
+            reg = obs.get_registry()
+            if reg is not None:
+                reg.counter("serve.spec.proposed").inc(k)
+                if acc:
+                    reg.counter("serve.spec.accepted").inc(acc)
+                reg.histogram("serve.spec.accept_len").observe(acc)
 
     def stream(self):
         """Generator: run ``step()`` until drained, yielding each
@@ -996,15 +1227,27 @@ class Engine:
         every request finished since the last ``run()`` -- including
         requests that finished during manual ``step()`` calls before this
         one.  Outputs are captured at finish time."""
+        drained = self._begin_drain()
+        try:
+            while self.has_work():
+                self.step()
+        finally:
+            self._end_drain()
+        return drained
+
+    def _begin_drain(self) -> Dict[str, List[int]]:
+        """Start a drain capture (shared by :meth:`run` and
+        ``FrontDoor.run``): collect requests already finished since the
+        last drain, and arm finish-time capture so eviction under
+        ``keep_finished`` cannot outrun the drain dict.  Pair with
+        :meth:`_end_drain` in a finally."""
         drained: Dict[str, List[int]] = {}
         for rid, st in self._states.items():
             if st.finished and not st.drained:
                 st.drained = True
                 drained[rid] = list(st.output_ids)
         self._drain_capture = drained
-        try:
-            while self.has_work():
-                self.step()
-        finally:
-            self._drain_capture = None
         return drained
+
+    def _end_drain(self) -> None:
+        self._drain_capture = None

@@ -29,7 +29,9 @@ raises the typed :class:`errors.AdapterInUse`.  ``alpha / rank`` is
 folded into ``B`` at load, so the serving delta is the plain chain
 ``x @ A @ B`` and the merged-weight reference is ``W + A @ (B *
 alpha/r)`` (:func:`merge_adapter`).  The host mirror (float32 numpy) is
-authoritative.
+authoritative.  With telemetry on, loads and evictions feed the
+reference's ``serve.lora.*`` metrics and ``serve_lora_load`` /
+``serve_lora_evict`` events.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..models.llama import torch_dtype
 from .errors import AdapterInUse, UnknownAdapter
 
@@ -220,6 +223,13 @@ class LoRAPool:
         self._slots[name] = slot
         self._write_device_slot(slot)
         self.loads += 1
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.lora.loads").inc()
+            reg.gauge("serve.lora.active_adapters").set(
+                self.active_adapters)
+        obs.emit_event("serve_lora_load", adapter=name, slot=slot,
+                       rank=self.rank)
         return slot
 
     def evict(self, name: str) -> None:
@@ -241,6 +251,12 @@ class LoRAPool:
         self._free.append(slot)
         self._write_device_slot(slot)
         self.evictions += 1
+        reg = obs.get_registry()
+        if reg is not None:
+            reg.counter("serve.lora.evictions").inc()
+            reg.gauge("serve.lora.active_adapters").set(
+                self.active_adapters)
+        obs.emit_event("serve_lora_evict", adapter=name, slot=slot)
 
     def _write_device_slot(self, slot: int) -> None:
         """Copy ONE slot's host rows into the device stacks, in place."""

@@ -153,6 +153,17 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
               "paddle_tpu_torch.resilience.faults",
               "paddle_tpu_torch.resilience.retry",
               "paddle_tpu_torch.observability._state",
+              "paddle_tpu_torch.observability.aggregate",
+              "paddle_tpu_torch.observability.registry",
+              "paddle_tpu_torch.observability.sinks",
+              "paddle_tpu_torch.observability.spans",
+              "paddle_tpu_torch.observability.flight_recorder",
+              "paddle_tpu_torch.observability.watchdog",
+              "paddle_tpu_torch.observability.trace",
+              "paddle_tpu_torch.profiler",
+              "paddle_tpu_torch.launch.preempt",
+              "paddle_tpu_torch.serving.frontdoor",
+              "paddle_tpu_torch.serving.server",
               "paddle_tpu_torch.serving.spec"]
     code = (
         "import pkgutil, sys, importlib\n"
